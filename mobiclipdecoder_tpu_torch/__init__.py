@@ -1,0 +1,19 @@
+"""mobiclipdecoder_tpu_torch: the Mobiclip decoder's whole-GOP decode path
+ported to PyTorch, with its executor as a hand-written CUDA kernel for
+NVIDIA Hopper (sm_90a).
+
+The JAX package ``mobiclipdecoder_tpu`` is the reference this port is held
+against; the port imports its JAX-free modules (oracle, planner, native
+scanner, synthesizer, tables) and nothing that needs JAX.
+
+Layers, from the entry point down:
+  ops/vmem_engine.py   VmemBatchDecoder / VmemVideoDecoder (host scan,
+                       dispatch, download)
+  ops/packing.py       numpy packing of scanned op streams into one blob
+  ops/prologue.py      blob -> (ops, coefs, sizes) on the device
+  ops/residuals.py     IDCT pre-pass (plain torch)
+  ops/executor.py      the executor kernel's wrapper (csrc/gop_executor.cu);
+                       ops/executor_ref.py is its plain PyTorch version
+  state.py             reference-ring layout and the kernel's intra tables
+"""
+__version__ = "0.1.0"

@@ -1,0 +1,119 @@
+"""Wrapper of the whole-GOP executor kernel (csrc/gop_executor.cu).
+
+``run_gop`` executes a packed GOP: for CUDA tensors it launches the
+hand-written kernel on the current stream (building it with nvcc at first
+use) or raises; for CPU tensors it runs the plain PyTorch version,
+ops/executor_ref.py.  ``launches`` counts kernel launches.
+
+``run_gop_host`` runs the kernel's per-op code (csrc/exec_ops.cuh) built
+for the host with g++; it exists for the CPU tests only.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from ..state import kernel_tables
+from ..utils import build
+from .executor_ref import run_gop_ref
+from .packing import CHUNK, _geom
+
+launches = 0
+
+_lib = None
+_host_lib = None
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+def _load():
+    global _lib
+    if _lib is None:
+        lib = build.load("gop_executor", ["gop_executor.cu"], "nvcc")
+        lib.mobi_gop_executor_launch.restype = ctypes.c_int
+        lib.mobi_gop_executor_launch.argtypes = [_P, _P, _P, _P, _P,
+                                                 _I, _I, _I, _I, _I, _P]
+        _lib = lib
+    return _lib
+
+
+def _load_host():
+    global _host_lib
+    if _host_lib is None:
+        lib = build.load("exec_host", ["exec_host.cpp"], "g++", "host")
+        lib.mobi_gop_executor_host.restype = ctypes.c_int
+        lib.mobi_gop_executor_host.argtypes = [_P, _P, _P, _P, _P,
+                                               _I, _I, _I, _I, _I]
+        _host_lib = lib
+    return _host_lib
+
+
+def _check(ops, resid, ring, F: int, H: int, S: int) -> None:
+    if S > 256:
+        raise NotImplementedError(f"stride {S} > 256 is not ported")
+    _hh, G8, SP = _geom(H, S)
+    B, nct = ops.shape[:2]
+    want = {"ops": (ops, torch.int32, (B, nct, CHUNK, 4)),
+            "resid": (resid, torch.int32, (B, nct, CHUNK, 64)),
+            "ring": (ring, torch.uint8, (B, 6, G8 * 8, SP))}
+    for name, (t, dt, shape) in want.items():
+        if t.dtype != dt or tuple(t.shape) != shape:
+            raise ValueError(f"{name}: expected {dt} {shape}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.device != ops.device:
+            raise ValueError(f"{name} is on {t.device}, ops on {ops.device}")
+    if B < 1 or F < 1:
+        raise ValueError("empty GOP")
+
+
+def run_gop(ops: torch.Tensor, resid: torch.Tensor, ring: torch.Tensor,
+            F: int, H: int, S: int) -> torch.Tensor:
+    """Execute a packed GOP.  ops (B, nct, CHUNK, 4) int32, resid
+    (B, nct, CHUNK, 64) int32 spatial residual rows, ring (B, 6, R, SP)
+    uint8 (updated in place).  Returns frames (F, B, R, SP) uint8."""
+    global launches
+    _check(ops, resid, ring, F, H, S)
+    B, nct = ops.shape[:2]
+    # every frame's plane is zeroed by the executor at its first chunk
+    frames = torch.empty((F, B) + tuple(ring.shape[2:]), dtype=torch.uint8,
+                         device=ops.device)
+    tabs = kernel_tables(ops.device)
+    if ops.device.type == "cpu":
+        run_gop_ref(ops, resid, ring, frames, tabs, H, S)
+        return frames
+    if ops.device.type != "cuda":
+        raise ValueError(f"no executor for device {ops.device}")
+    lib = _load()
+    with torch.cuda.device(ops.device):
+        stream = torch.cuda.current_stream(ops.device).cuda_stream
+        rc = lib.mobi_gop_executor_launch(
+            ops.data_ptr(), resid.data_ptr(), ring.data_ptr(),
+            frames.data_ptr(), tabs.data_ptr(), B, nct, F, H, S, stream)
+    if rc != 0:
+        raise RuntimeError(f"gop executor launch failed: CUDA error {rc}")
+    launches += 1
+    return frames
+
+
+def run_gop_host(ops: np.ndarray, resid: np.ndarray, ring: np.ndarray,
+                 F: int, H: int, S: int) -> np.ndarray:
+    """The kernel's per-op code built for the host (g++), on numpy arrays;
+    updates ``ring`` in place and returns frames (F, B, R, SP) uint8."""
+    ops = np.ascontiguousarray(ops, np.int32)
+    resid = np.ascontiguousarray(resid, np.int32)
+    if not (ring.flags.c_contiguous and ring.dtype == np.uint8):
+        raise ValueError("ring must be a contiguous uint8 array")
+    _check(torch.from_numpy(ops), torch.from_numpy(resid),
+           torch.from_numpy(ring), F, H, S)
+    B, nct = ops.shape[:2]
+    frames = np.empty((F, B) + ring.shape[2:], np.uint8)
+    tabs = kernel_tables("cpu").numpy()
+    _load_host().mobi_gop_executor_host(
+        ops.ctypes.data, resid.ctypes.data, ring.ctypes.data,
+        frames.ctypes.data, tabs.ctypes.data, B, nct, F, H, S)
+    return frames

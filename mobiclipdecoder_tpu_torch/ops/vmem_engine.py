@@ -1,0 +1,406 @@
+"""Whole-GOP decoders: the port of ``VmemBatchDecoder`` / ``VmemVideoDecoder``
+(``mobiclipdecoder_tpu/ops/vmem_engine.py``).
+
+B independent streams decode in lockstep.  Per GOP the host C++ scanner
+(``utils/native.py``, shared with the JAX package) emits one packed part
+per stream; ``ops/packing.py`` assembles them into one int32 blob, which is
+uploaded once; on the device the prologue (``ops/prologue.py``) unpacks
+it, ``ops/residuals.py`` runs the IDCT pre-pass, and ONE executor launch
+(``ops/executor.py``) decodes the whole GOP for every stream against the
+6-slot reference ring, which stays on the device across GOPs.
+
+Every decode, single frames included, goes through this fused path (a
+single frame is a GOP of one).  Strides above 256 (400x240 and 640x480)
+are not ported and raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import concurrent.futures as _cf
+import subprocess
+import time
+from typing import Iterator
+
+import numpy as np
+import torch
+
+from ..shared.models.plan import PlanningDecoder
+from ..shared.runtime.metrics import DecodeMetrics
+
+from ..state import ring_shape
+from . import executor, packing
+from .packing import (CHUNK, _assemble_gop_parts, _frame_chunk_spans,
+                      _gop_part, _pack_gop_blob_sparse, _pack_gop_chunks,
+                      _part_dense_arrays, _split_gop_part)
+from .prologue import (crop_frames, crop_gop_yuv, renormalize_ring,
+                       unpack_gop_blob)
+from .residuals import _residuals
+
+
+def _decode_gop_fused(ring, ops, coefs, sizes, F: int, H: int, S: int):
+    """Whole-GOP decode as ONE executor launch.
+
+    ops (B, NCT, CHUNK, 4) packed chunk stream; coefs (B, NCT, CHUNK, 64);
+    sizes (B, NCT, CHUNK); ring (B, 6, R, SP) uint8, updated in place.
+    Returns (ring renormalized to slot 0 = newest, yuv (F, B, HH, S)
+    uint8), both on the ring's device."""
+    B, nct = ops.shape[:2]
+    resid = _residuals(coefs.reshape(-1, 64),
+                       sizes.reshape(-1)).view(B, nct, CHUNK, 64)
+    frames = executor.run_gop(ops.contiguous(), resid, ring, F, H, S)
+    if (5 - (F - 1)) % 6:
+        ring = renormalize_ring(ring, F)
+    return ring, crop_frames(frames, H, S)
+
+
+def _decode_gop_fused_sblob(ring, blob, F: int, nct: int, nnzb: int,
+                            H: int, S: int):
+    """Sparse-upload whole GOP: one blob, one executor launch."""
+    ops, coefs, sizes = unpack_gop_blob(blob, ring.shape[0], nct, nnzb)
+    return _decode_gop_fused(ring, ops, coefs, sizes, F, H, S)
+
+
+class VmemBatchDecoder:
+    """Decodes B independent streams in lockstep through the GOP executor.
+
+    ``device`` is required: the decoder runs where it is told and never
+    moves itself.  On a CUDA device the executor is the CUDA kernel; on
+    the CPU it is the plain PyTorch version."""
+
+    def __init__(self, width: int, height: int, version, batch: int = 1,
+                 *, device, native: bool | None = None, crop: bool = False):
+        # crop=True slices results to frame width ON DEVICE before the
+        # download: (F, B, HH, W) with the UV halves repacked as U|V
+        self.B = batch
+        self.crop = bool(crop)
+        self.width, self.height = width, height
+        self.device = torch.device(device)
+        self.planners = [PlanningDecoder(width, height, version)
+                         for _ in range(batch)]
+        self.stride = self.planners[0].stride
+        if self.stride > 256:
+            raise NotImplementedError(
+                f"{width}x{height} needs stride {self.stride}; only strides "
+                f"<= 256 are ported")
+        self.natives = None
+        if native is not False:
+            try:
+                from ..shared.utils.native import NativePlanner
+                self.natives = [NativePlanner(width, height, int(version))
+                                for _ in range(batch)]
+            except (OSError, AttributeError, subprocess.CalledProcessError):
+                if native is True:
+                    raise
+        self._pool = _cf.ThreadPoolExecutor(max_workers=min(batch, 16))
+        self.ring = torch.zeros(ring_shape(batch, height, self.stride),
+                                dtype=torch.uint8, device=self.device)
+        self.metrics = DecodeMetrics()
+
+    @property
+    def offset(self):
+        if self.natives is not None:
+            return self.natives[0].offset
+        return self.planners[0].offset
+
+    def ring_frame_np(self, b: int = 0, slot: int = 0) -> np.ndarray:
+        """Host copy of one ring frame as uint8 rows (G8*8, SP)."""
+        return self.ring[b, slot].cpu().numpy()
+
+    def _scan_one(self, b: int, packet: bytes) -> dict:
+        if self.natives is not None:
+            return self.natives[b].scan_unified(packet)
+        p = self.planners[b]
+        p.data = packet
+        p.offset = 0
+        p.decode_frame()
+        return p.unified_plan()
+
+    def _scan_all(self, packets: list[bytes]) -> list[dict]:
+        if self.natives is not None and self.B > 1:
+            # the C++ scanner releases the GIL and each stream has its own
+            # context: streams scan in parallel on host cores
+            return list(self._pool.map(
+                lambda a: self._scan_one(*a), enumerate(packets)))
+        return [self._scan_one(b, pkt) for b, pkt in enumerate(packets)]
+
+    def scan_packets(self, packets: list[bytes]) -> tuple:
+        """Scan one frame per stream into the executor's packed chunk
+        layout: (ops (B, nct, CHUNK, 4), coefs (B, nct, CHUNK, 64),
+        sizes (B, nct, CHUNK)) host arrays.  (The JAX engine's version
+        returns its per-round layout, which the port does not have.)"""
+        return _pack_gop_chunks([self._scan_all(packets)], self.B)
+
+    def _upload(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def decode_frames(self, packets: list[bytes]) -> np.ndarray:
+        """One frame per stream; returns (B, HH, S) uint8 planes.  Runs as
+        the fused GOP executor with F=1."""
+        t0 = time.perf_counter()
+        t1, yuv = self._dispatch_gop_fused([packets])
+        out = yuv[0].cpu().numpy()
+        t2 = time.perf_counter()
+        m = self.metrics
+        m.frames += self.B
+        m.bytes_in += sum(len(p) for p in packets)
+        m.scan_seconds += t1 - t0
+        m.device_seconds += t2 - t1
+        m.wall_seconds += t2 - t0
+        return out
+
+    def _dispatch_gop_fused(self, frames: list[list[bytes]]):
+        """Scan + pack + dispatch one GOP; returns (scan_end_time, device
+        yuv) without waiting for the device.  The C++ scanner emits the
+        packed parts directly; the per-frame plan path takes over when
+        native scanning is unavailable or the GOP does not fit the native
+        format (the C++ state is rewound first)."""
+        if self.natives is not None:
+            out = self._dispatch_gop_native(frames)
+            if out is not None:
+                return out[0], self._maybe_crop(out[1])
+        plans_fb = [self._scan_all(fp) for fp in frames]
+        t1, yuv = self._dispatch_plans(plans_fb)
+        return t1, self._maybe_crop(yuv)
+
+    def _maybe_crop(self, yuv):
+        if not self.crop or self.width == self.stride:
+            return yuv
+        return crop_gop_yuv(yuv, self.height, self.width, self.stride)
+
+    def _dispatch_gop_native(self, frames: list[list[bytes]]):
+        """Whole-GOP native scan+pack+dispatch, or None to fall back (with
+        all stream states rewound to the GOP start)."""
+        F = len(frames)
+        if F == 0 or F >= 4096:
+            return None
+        per = [[frames[f][b] for f in range(F)] for b in range(self.B)]
+        for nv in self.natives:
+            nv.checkpoint()
+        if self.B > 1:
+            res = list(self._pool.map(
+                lambda b: self.natives[b].scan_gop_packed(per[b]),
+                range(self.B)))
+        else:
+            res = [self.natives[0].scan_gop_packed(per[0])]
+        if any(r["err"] or r["val_overflow"] or r["done"] != F
+               for r in res):
+            # malformed frame, >int16 coefficient, or a stream outgrew the
+            # scan buffers: rewind every stream and let the plan path redo
+            # the GOP
+            for nv in self.natives:
+                nv.rollback()
+            return None
+        return self._dispatch_parts([_gop_part(r) for r in res])
+
+    def _dispatch_parts(self, parts: list[dict]):
+        """Dispatch per-stream GOP parts, splitting at frame boundaries
+        while any stream exceeds the chunk/nnz bucket ladders (the ring
+        carries across dispatches)."""
+        F = len(parts[0]["fnct"])
+        if (max(q["c1"] - q["c0"] for q in parts) > packing.NCT_BUCKETS[-1]
+                or max(q["idx"].size for q in parts)
+                > packing.NNZ_PS_BUCKETS[-1]):
+            if F <= 1:
+                if (max(q["c1"] - q["c0"] for q in parts)
+                        > packing.NCT_BUCKETS[-1]):
+                    raise ValueError(
+                        "single frame exceeds fused-GOP chunk buckets")
+                # a lone frame too dense for the sparse format: dense upload
+                ops, coefs, sizes = _part_dense_arrays(parts)
+                t1 = time.perf_counter()
+                self.ring, yuv = _decode_gop_fused(
+                    self.ring, self._upload(ops), self._upload(coefs),
+                    self._upload(sizes), F, self.height, self.stride)
+                return t1, yuv
+            mid = F // 2
+            _ta, ya = self._dispatch_parts(
+                [_split_gop_part(q, 0, mid) for q in parts])
+            tb, yb = self._dispatch_parts(
+                [_split_gop_part(q, mid, F) for q in parts])
+            return tb, torch.cat([ya, yb], dim=0)
+        blob, nct, nnzb = _assemble_gop_parts(parts)
+        t1 = time.perf_counter()
+        self.ring, yuv = _decode_gop_fused_sblob(
+            self.ring, self._upload(blob), F, nct, nnzb, self.height,
+            self.stride)
+        return t1, yuv
+
+    def _dispatch_plans(self, plans_fb: list[list[dict]]):
+        """Pack pre-scanned per-frame plans and dispatch the GOP, split
+        into consecutive dispatches when its chunk stream would overflow
+        the largest bucket."""
+        cap = packing.NCT_BUCKETS[-1]
+        totals = [0] * self.B
+        for row in plans_fb:
+            for b, p in enumerate(row):
+                n = int(p["ops"][0, 0])
+                totals[b] += len(_frame_chunk_spans(p["ops"][1:1 + n]))
+        if max(totals) > cap and len(plans_fb) > 1:
+            mid = len(plans_fb) // 2
+            _t1a, ya = self._dispatch_plans(plans_fb[:mid])
+            t1b, yb = self._dispatch_plans(plans_fb[mid:])
+            return t1b, torch.cat([ya, yb], dim=0)
+        return self._dispatch_plans_one(plans_fb)
+
+    def _dispatch_plans_one(self, plans_fb: list[list[dict]]):
+        F = len(plans_fb)
+        ops, coefs, sizes = _pack_gop_chunks(plans_fb, self.B)
+        t1 = time.perf_counter()
+        nct = ops.shape[1]
+        sp = _pack_gop_blob_sparse(ops, coefs,
+                                   sizes.reshape(self.B, nct * CHUNK))
+        if sp is not None:
+            blob, nnzb = sp
+            self.ring, yuv = _decode_gop_fused_sblob(
+                self.ring, self._upload(blob), F, nct, nnzb, self.height,
+                self.stride)
+        else:
+            self.ring, yuv = _decode_gop_fused(
+                self.ring, self._upload(ops), self._upload(coefs),
+                self._upload(sizes), F, self.height, self.stride)
+        return t1, yuv
+
+    def _start_download(self, yuv: torch.Tensor):
+        """Begin the device->host copy of a GOP's planes; returns
+        (host tensor, event or None)."""
+        if yuv.device.type != "cuda":
+            return yuv.contiguous(), None
+        host = torch.empty(yuv.shape, dtype=yuv.dtype, pin_memory=True)
+        host.copy_(yuv, non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record()
+        return host, ev
+
+    def decode_gops(self, gops) -> Iterator[np.ndarray]:
+        """Streaming multi-GOP decode: GOP n's download runs (pinned
+        buffer, non-blocking copy) while GOP n+1 is scanned on the host
+        and decoded on the device.  Yields (F, B, HH, S) uint8 per GOP, in
+        order."""
+        pending = None
+        for frames in gops:
+            t0 = time.perf_counter()
+            _t1, yuv = self._dispatch_gop_fused(frames)
+            nxt = (*self._start_download(yuv), len(frames) * self.B, t0)
+            if pending is not None:
+                yield self._finish(*pending)
+            pending = nxt
+        if pending is not None:
+            yield self._finish(*pending)
+
+    def _finish(self, host, ev, n_frames: int, t0: float) -> np.ndarray:
+        if ev is not None:
+            ev.synchronize()
+        arr = host.numpy()
+        m = self.metrics
+        m.frames += n_frames
+        m.wall_seconds += time.perf_counter() - t0
+        return arr
+
+    def decode_gop(self, frames: list[list[bytes]],
+                   fused: bool = True) -> np.ndarray:
+        """frames[f][b] = packet of frame f of stream b; returns
+        (F, B, HH, S) uint8 (W columns with crop=True).
+
+        The whole GOP runs as ONE executor launch with one upload and one
+        download.  ``fused`` is kept for the JAX package's signature: the
+        per-frame launch forms are not ported, so ``fused=False`` takes
+        the same fused path."""
+        del fused
+        t0 = time.perf_counter()
+        F = len(frames)
+        t1, yuv = self._dispatch_gop_fused(frames)
+        out = yuv.cpu().numpy()
+        t2 = time.perf_counter()
+        m = self.metrics
+        m.frames += F * self.B
+        m.bytes_in += sum(len(p) for fp in frames for p in fp)
+        m.scan_seconds += t1 - t0
+        m.device_seconds += t2 - t1
+        m.wall_seconds += t2 - t0
+        return out
+
+
+class VmemVideoDecoder(VmemBatchDecoder):
+    """Single-stream convenience wrapper."""
+
+    def __init__(self, width: int, height: int, version, *, device,
+                 native: bool | None = None, crop: bool = False):
+        super().__init__(width, height, version, batch=1, device=device,
+                         native=native, crop=crop)
+
+    def decode_stream_chunk(self, packets: list[bytes]
+                            ) -> tuple[np.ndarray, list[int], int | None]:
+        """Decode consecutive frames of ONE stream as one fused dispatch
+        (the transcoder's throughput path).
+
+        Returns (yuv (K, HH, S) uint8, K end offsets, err_index): the K
+        successfully scanned prefix frames are decoded and committed to
+        the ring; ``err_index`` is the index of the packet whose scan
+        failed (its frame is NOT decoded), or None when the whole chunk
+        scanned.  One native scanner_scan_gop call covers the chunk; a
+        coefficient beyond int16 rewinds it and the remainder takes the
+        per-packet plan path."""
+        t0 = time.perf_counter()
+        yuvs: list[np.ndarray] = []
+        offsets: list[int] = []
+        err = None
+        t_scan = 0.0
+        rem = list(packets)
+        ndone = 0
+        nv = self.natives[0] if self.natives is not None else None
+        while rem and nv is not None:
+            ts = time.perf_counter()
+            nv.checkpoint()
+            r = nv.scan_gop_packed(rem)
+            t_scan += time.perf_counter() - ts
+            if r["val_overflow"]:
+                nv.rollback()
+                break
+            done = r["done"]
+            offsets.extend(int(c) for c in r["consumed"])
+            if done:
+                _t1, yuv = self._dispatch_parts([_gop_part(r)])
+                yuvs.append(self._maybe_crop(yuv)[:, 0].cpu().numpy())
+                ndone += done
+                rem = rem[done:]
+            if r["err"]:
+                err = ndone
+                rem = []
+                break
+            if done == 0:
+                # a frame bigger than the native scan caps: the per-packet
+                # plan path below has no such limits
+                break
+        if rem and err is None:
+            plans_fb: list[list[dict]] = []
+            ts = time.perf_counter()
+            for i, pkt in enumerate(rem):
+                try:
+                    plans_fb.append([self._scan_one(0, pkt)])
+                    offsets.append(self.offset)
+                except Exception:
+                    # per-frame containment: a malformed packet ends the
+                    # chunk at its index; the caller decides what follows
+                    err = ndone + i
+                    break
+            t_scan += time.perf_counter() - ts
+            if plans_fb:
+                _t1, yuv = self._dispatch_plans(plans_fb)
+                yuvs.append(self._maybe_crop(yuv)[:, 0].cpu().numpy())
+                ndone += len(plans_fb)
+        out_w = self.width if self.crop else self.stride
+        out = (np.concatenate(yuvs, axis=0) if yuvs else
+               np.zeros((0, self.height + self.height // 2, out_w),
+                        np.uint8))
+        t2 = time.perf_counter()
+        m = self.metrics
+        m.frames += ndone
+        m.bytes_in += sum(len(p) for p in packets[:ndone])
+        m.scan_seconds += t_scan
+        m.device_seconds += (t2 - t0) - t_scan
+        m.wall_seconds += t2 - t0
+        return out, offsets, err
+
+    def decode_frame(self, packet: bytes) -> tuple[np.ndarray, np.ndarray]:
+        out = self.decode_frames([packet])[0]
+        H = self.height
+        return out[:H], out[H:]

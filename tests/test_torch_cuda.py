@@ -1,0 +1,86 @@
+"""Tests of the port that need an NVIDIA GPU: the hand-written CUDA
+executor kernel against its plain PyTorch version, and the decoder on the
+card against the decoder on the CPU.  They skip where no CUDA device is
+present (the kernel has no CPU mode; its per-op code is checked on the CPU
+through the host build in test_torch_executor.py).  This file imports no
+JAX, so it runs on a machine without it:
+
+    python -m pytest tests/test_torch_cuda.py -q
+"""
+import numpy as np
+import pytest
+import torch
+
+from mobiclipdecoder_tpu.models.oracle_video import MobiclipVersion
+from mobiclipdecoder_tpu.models.plan import PlanningDecoder
+from mobiclipdecoder_tpu.testing.synth import StreamSynthesizer
+
+from mobiclipdecoder_tpu_torch import state
+from mobiclipdecoder_tpu_torch.ops import executor, packing
+from mobiclipdecoder_tpu_torch.ops.residuals import _residuals
+from mobiclipdecoder_tpu_torch.ops.vmem_engine import VmemBatchDecoder
+
+W, H, S = 64, 48, 256
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernel has no CPU mode)")
+    return torch.device("cuda")
+
+
+def _frames(version, seeds, nframes):
+    synths = [StreamSynthesizer(W, H, version, seed=s) for s in seeds]
+    return [[s.iframe(0x18) if f == 0 else s.pframe() for s in synths]
+            for f in range(nframes)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("version", [MobiclipVersion.MODS_DS,
+                                     MobiclipVersion.MOFLEX_3DS])
+def test_cuda_kernel_matches_plain(cuda, version):
+    frames = _frames(version, (21, 22, 23), 7)
+    planners = [PlanningDecoder(W, H, version) for _ in range(3)]
+    plans = []
+    for fp in frames:
+        row = []
+        for p, pkt in zip(planners, fp):
+            p.data = pkt
+            p.offset = 0
+            p.decode_frame()
+            row.append(p.unified_plan())
+        plans.append(row)
+    ops, coefs, sizes = packing._pack_gop_chunks(plans, 3)
+    B, nct = ops.shape[:2]
+    resid = _residuals(torch.from_numpy(coefs).view(-1, 64),
+                       torch.from_numpy(sizes).view(-1)).view(B, nct, 256,
+                                                               64)
+    ring0 = np.random.default_rng(0).integers(
+        0, 256, state.ring_shape(B, H, S)).astype(np.uint8)
+    ring_c = torch.from_numpy(ring0).to(cuda)
+    before = executor.launches
+    frames_c = executor.run_gop(torch.from_numpy(ops).to(cuda),
+                                resid.to(cuda), ring_c, len(frames), H, S)
+    torch.cuda.synchronize()
+    assert executor.launches == before + 1
+    ring_p = torch.from_numpy(ring0.copy())
+    frames_p = executor.run_gop(torch.from_numpy(ops), resid, ring_p,
+                                len(frames), H, S)
+    np.testing.assert_array_equal(frames_c.cpu().numpy(), frames_p.numpy())
+    np.testing.assert_array_equal(ring_c.cpu().numpy(), ring_p.numpy())
+
+
+@pytest.mark.cuda
+def test_cuda_decoder_matches_cpu_decoder(cuda):
+    v = MobiclipVersion.MODS_DS
+    gops = [_frames(v, (31, 32), 4), _frames(v, (33, 34), 3)]
+    gpu = VmemBatchDecoder(W, H, v, batch=2, device=cuda)
+    cpu = VmemBatchDecoder(W, H, v, batch=2, device="cpu")
+    before = executor.launches
+    got = list(gpu.decode_gops(iter(gops)))
+    assert executor.launches == before + 2
+    exp = list(cpu.decode_gops(iter(gops)))
+    for g, e in zip(got, exp):
+        np.testing.assert_array_equal(g, e)
+    np.testing.assert_array_equal(gpu.ring.cpu().numpy(), cpu.ring.numpy())

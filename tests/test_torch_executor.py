@@ -1,0 +1,312 @@
+"""The port's whole-GOP executor vs the JAX package's Pallas executor.
+
+Every comparison is exact equality (an integer codec).  The JAX side runs
+``_decode_gop_fused`` in Pallas interpret mode on the CPU, as the JAX
+package's own tests do; all calls share one shape (B=2, F=4, 16 chunks)
+so the interpret-mode build happens once per process.  The CUDA kernel
+runs only on a GPU; its arithmetic is checked here through the host (g++)
+build of csrc/exec_ops.cuh.
+"""
+import shutil
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+from mobiclipdecoder_tpu.models.oracle_video import MobiclipVersion
+from mobiclipdecoder_tpu.models.plan import PlanningDecoder, pack_unified
+from mobiclipdecoder_tpu.ops import vmem_engine as jve
+from mobiclipdecoder_tpu.testing.synth import StreamSynthesizer
+
+from mobiclipdecoder_tpu_torch import state
+from mobiclipdecoder_tpu_torch.ops import executor, packing
+from mobiclipdecoder_tpu_torch.ops.prologue import (crop_frames,
+                                                    renormalize_ring)
+from mobiclipdecoder_tpu_torch.ops.residuals import _residuals
+
+W, H, S = 64, 48, 256
+B, F = 2, 4
+
+
+def _synth_plans(version, seeds, nframes=F, start=0):
+    """Unified plans of synthesized streams: plans[f][b]."""
+    synths = [StreamSynthesizer(W, H, version, seed=s) for s in seeds]
+    planners = [PlanningDecoder(W, H, version) for _ in seeds]
+    plans = []
+    for f in range(start + nframes):
+        row = []
+        for syn, p in zip(synths, planners):
+            p.data = syn.iframe(0x18) if f == 0 else syn.pframe()
+            p.offset = 0
+            p.decode_frame()
+            row.append(p.unified_plan())
+        if f >= start:
+            plans.append(row)
+    return plans
+
+
+def _coef(rng, n):
+    c = np.zeros((n, n), np.int32)
+    k = rng.integers(1, 6)
+    c.flat[rng.choice(n * n, k, replace=False)] = rng.integers(-90, 90, k)
+    return c
+
+
+# op families of the hand-built GOPs: (luma kinds for frame 0, luma kinds
+# for later frames, chroma kinds) of _hand_frame
+FAMILIES = {
+    "all": ((0, 1, 2, 3, 4, 5), tuple(range(10)), (0, 1, 2)),
+    "lifecycle": ((0,), (6,), ()),
+    "resid": ((5, 9), (5, 9), (2,)),
+    "intra_single": ((0, 4), (0, 4), (1,)),
+    "quad": ((1, 2, 3), (1, 2, 3), ()),
+    "chroma_pair": ((0,), (0,), (0,)),
+    "mc": ((6, 7, 8), (6, 7, 8), ()),
+}
+
+
+def _hand_frame(rng, f, family="all"):
+    """A decode-order op list covering every op family pack_unified
+    emits: plane 2/12/plane16 (with gradients that push the closed form
+    out of 0..255), single and quad-batched directional/DC intra, chroma
+    U+V intra pairs, plain / masked 16x16 / U+V residuals, and (f > 0)
+    MC with fused and split-leaf residuals and MVs pointing off the
+    frame."""
+    ops = []
+    half = S // 2
+    for my in range(0, H, 16):
+        for mx in range(0, W, 16):
+            k0, kp, cks = FAMILIES[family]
+            kind = int(rng.choice(k0 if f == 0 else kp))
+            if kind == 0:                       # plane16
+                ops.append(("intra", 0, my, mx, 16, 2,
+                            int(rng.integers(-120, 120)), None))
+            elif kind in (1, 2):                # 8x8 intra (quad batch)
+                for q in range(4):
+                    if rng.random() < 0.2:
+                        continue                # absent slot
+                    mode = int(rng.choice([0, 1, 3, 4, 5, 6, 7, 8]))
+                    cf = (_coef(rng, 8), 0) if rng.random() < 0.5 else None
+                    ops.append(("intra", 0, my + 8 * (q >> 1),
+                                mx + 8 * (q & 1), 8, mode, 0, cf))
+            elif kind == 3:                     # 4x4 intra inside 8x8s
+                for q8 in range(4):
+                    by, bx = my + 8 * (q8 >> 1), mx + 8 * (q8 & 1)
+                    for q in range(4):
+                        mode = int(rng.choice([10, 11, 12, 13, 14, 15, 16,
+                                               17, 18]))
+                        cf = (_coef(rng, 4), 0) if rng.random() < 0.5 \
+                            else None
+                        grad = int(rng.integers(-90, 90)) if mode == 12 else 0
+                        ops.append(("intra", 0, by + 4 * (q >> 1),
+                                    bx + 4 * (q & 1), 4, mode, grad, cf))
+            elif kind == 4:                     # 8x8 plane mode 2 + lone 8x8
+                ops.append(("intra", 0, my, mx, 8, 2,
+                            int(rng.integers(-80, 80)), (_coef(rng, 8), 0)))
+                ops.append(("intra", 0, my + 8, mx + 8, 8, 3, 0, None))
+                ops.append(("resid", 0, my + 8, mx, 8, (_coef(rng, 8), 0)))
+            elif kind == 5:                     # masked 16x16 residual
+                for q in (0, 1, 3):
+                    ops.append(("resid", 0, my + 8 * (q >> 1),
+                                mx + 8 * (q & 1), 8, (_coef(rng, 8), 0)))
+                ops.append(("resid", 0, my + 4, mx + 12, 4,
+                            (_coef(rng, 4), 0)))
+            elif kind == 6:                     # 16x16 MC + fused residuals
+                dx, dy = (int(v) for v in rng.integers(-40, 40, 2))
+                if rng.random() < 0.3:          # far off the frame
+                    dx, dy = -2 * (mx + 40) - 1, 2 * (H - my + 30) + 1
+                ops.append(("mc", 16, 16, int(rng.integers(1, 6)), dx, dy,
+                            my * S + mx))
+                for q in range(4):
+                    if rng.random() < 0.6:
+                        ops.append(("resid", 0, my + 8 * (q >> 1),
+                                    mx + 8 * (q & 1), 8, (_coef(rng, 8), 0)))
+                cy, cx = my // 2, mx // 2
+                if rng.random() < 0.6:
+                    ops.append(("resid", 1, cy, cx, 8, (_coef(rng, 8), 0)))
+                ops.append(("resid", 1, cy, cx + half, 8, (_coef(rng, 8), 0)))
+            elif kind == 7:                     # split leaves + residuals
+                lw, lh = [(8, 8), (16, 8), (8, 16)][rng.integers(0, 3)]
+                for ly in range(0, 16, lh):
+                    for lx in range(0, 16, lw):
+                        dx, dy = (int(v) for v in rng.integers(-70, 70, 2))
+                        ops.append(("mc", lw, lh, int(rng.integers(1, 4)),
+                                    dx, dy, (my + ly) * S + mx + lx))
+                for q in range(4):
+                    if rng.random() < 0.7:
+                        ops.append(("resid", 0, my + 8 * (q >> 1),
+                                    mx + 8 * (q & 1), 8, (_coef(rng, 8), 0)))
+            elif kind == 9:                     # plain 8x8 / 4x4 residuals
+                ops.append(("resid", 0, my + 8, mx, 8, (_coef(rng, 8), 0)))
+                ops.append(("resid", 0, my, mx + 4, 4, (_coef(rng, 4), 0)))
+            else:                               # small leaves, half-pel
+                for ly in range(0, 16, 4):
+                    for lx in range(0, 16, 8):
+                        dx, dy = (int(v) for v in rng.integers(-9, 9, 2))
+                        ops.append(("mc", 8, 4, 1, dx, dy,
+                                    (my + ly) * S + mx + lx))
+            # chroma of the MB: U+V intra pair, plane-mode singles, or a
+            # U+V residual pair
+            cy, cx = my // 2, mx // 2
+            ck = int(rng.choice(cks)) if cks else -1
+            if ck == 0:
+                mode = int(rng.choice([0, 1, 3, 4, 5, 6, 7, 8]))
+                for x in (cx, cx + half):
+                    cf = (_coef(rng, 8), 0) if rng.random() < 0.5 else None
+                    ops.append(("intra", 1, cy, x, 8, mode, 0, cf))
+            elif ck == 1:
+                for x in (cx, cx + half):
+                    ops.append(("intra", 1, cy, x, 8, 2,
+                                int(rng.integers(-60, 60)), None))
+            elif ck == 2:
+                for x in (cx, cx + half):
+                    ops.append(("resid", 1, cy, x, 8, (_coef(rng, 8), 0)))
+    return pack_unified(ops, S, H)
+
+
+def _hand_plans(seed, family="all"):
+    rngs = [np.random.default_rng(seed * 10 + b) for b in range(B)]
+    return [[_hand_frame(rngs[b], f, family) for b in range(B)]
+            for f in range(F)]
+
+
+def _packed(plans):
+    ops, coefs, sizes = packing._pack_gop_chunks(plans, B)
+    assert ops.shape[1] == 16          # one interpret-mode build per process
+    return ops, coefs, sizes
+
+
+def _jax_gop(ring_np, ops, coefs, sizes):
+    ring, yuv = jve._decode_gop_fused(
+        jnp.asarray(ring_np), jnp.asarray(ops), jnp.asarray(coefs),
+        jnp.asarray(sizes), F, H, S, True)
+    return np.asarray(ring), np.asarray(yuv)
+
+
+def _resid(coefs, sizes):
+    return _residuals(torch.from_numpy(coefs).view(-1, 64),
+                      torch.from_numpy(sizes).view(-1)).view(B, -1, 256, 64)
+
+
+def _port_gop(ring, ops, coefs, sizes):
+    """Plain executor through the wrapper (CPU tensors)."""
+    frames = executor.run_gop(torch.from_numpy(ops), _resid(coefs, sizes),
+                              ring, F, H, S)
+    ring = renormalize_ring(ring, F)
+    return state.ring_to_jax(ring, H, S), crop_frames(frames, H, S).numpy()
+
+
+def _zero_ring_jax():
+    _hh, G8, SP = packing._geom(H, S)
+    return np.zeros((B, 6, G8, 8, SP), np.int32)
+
+
+def _zero_ring():
+    return torch.zeros(state.ring_shape(B, H, S), dtype=torch.uint8)
+
+
+@pytest.mark.parametrize("version", [MobiclipVersion.MODS_DS,
+                                     MobiclipVersion.MOFLEX_3DS])
+def test_executor_ref_matches_jax_interpret_synth(version):
+    ops, coefs, sizes = _packed(_synth_plans(version, (3, 4)))
+    jring, jyuv = _jax_gop(_zero_ring_jax(), ops, coefs, sizes)
+    before = executor.launches
+    pring, pyuv = _port_gop(_zero_ring(), ops, coefs, sizes)
+    assert executor.launches == before      # CPU tensors: no kernel launch
+    np.testing.assert_array_equal(pyuv, jyuv)
+    np.testing.assert_array_equal(pring, jring)
+
+
+# (type, size_log) op forms each family must emit; type 1 is MC
+FORMS = {
+    "all": ((1, None), (2, 3), (2, 4), (2, 5), (3, 2), (3, 3), (3, 4),
+            (3, 5), (3, 6), (3, 7)),
+    "lifecycle": ((1, None), (3, 4)),
+    "resid": ((2, 3), (2, 4), (2, 5)),
+    "intra_single": ((3, 3), (3, 4)),
+    "quad": ((3, 5), (3, 6)),
+    "chroma_pair": ((3, 7),),
+    "mc": ((1, None),),
+}
+
+
+@pytest.mark.parametrize("family", sorted(FAMILIES))
+def test_executor_ref_matches_jax_interpret_hand_built(family):
+    plans = _hand_plans(7, family)
+    w0 = np.concatenate([p["ops"][1:1 + int(p["ops"][0, 0]), 0]
+                         for row in plans for p in row])
+    typ, sl = w0 & 3, (w0 >> 2) & 7
+    for t, s in FORMS[family]:
+        assert ((typ == t) & ((sl == s) if s is not None else True)).any(), \
+            (family, t, s)
+    if family == "mc":          # split leaves carry attached residual rows
+        lw = (w0 >> 16) & 0x1F
+        assert ((typ == 1) & (lw < 16) & (((w0 >> 3) & 0xF) != 0)).any()
+    ops, coefs, sizes = _packed(plans)
+    ring_np = np.random.default_rng(1).integers(
+        0, 256, _zero_ring_jax().shape).astype(np.int32)
+    jring, jyuv = _jax_gop(ring_np, ops, coefs, sizes)
+    pring, pyuv = _port_gop(state.ring_from_jax(ring_np, H, S), ops, coefs,
+                            sizes)
+    np.testing.assert_array_equal(pyuv, jyuv)
+    np.testing.assert_array_equal(pring, jring)
+
+
+def test_gop_continues_from_ring_carried_over_from_jax():
+    """GOP 1 decoded by the JAX engine; GOP 2 decoded by the port from
+    ring_from_jax(ring) equals GOP 2 decoded by the JAX engine."""
+    v = MobiclipVersion.MODS_DS
+    plans = _synth_plans(v, (8, 9), nframes=2 * F)
+    g1 = _packed(plans[:F])
+    g2 = _packed(plans[F:])
+    ring1, _ = _jax_gop(_zero_ring_jax(), *g1)
+    assert ring1.any()
+    jring2, jyuv2 = _jax_gop(ring1, *g2)
+    ring_t = state.ring_from_jax(ring1, H, S)
+    np.testing.assert_array_equal(state.ring_to_jax(ring_t, H, S), ring1)
+    pring2, pyuv2 = _port_gop(ring_t, *g2)
+    np.testing.assert_array_equal(pyuv2, jyuv2)
+    np.testing.assert_array_equal(pring2, jring2)
+
+
+@pytest.mark.parametrize("source", ["synth_ds", "synth_moflex", "hand"])
+def test_host_build_of_kernel_matches_plain(source):
+    """csrc/exec_ops.cuh built for the host with g++ (the kernel's own
+    per-op code, thread loop on the host) equals the plain executor."""
+    if shutil.which("g++") is None:
+        pytest.skip("g++ is not installed")
+    if source == "hand":
+        plans = _hand_plans(11)
+    else:
+        v = (MobiclipVersion.MODS_DS if source == "synth_ds"
+             else MobiclipVersion.MOFLEX_3DS)
+        plans = _synth_plans(v, (5, 6))
+    ops, coefs, sizes = packing._pack_gop_chunks(plans, B)
+    resid = _resid(coefs, sizes)
+    ring0 = np.random.default_rng(2).integers(
+        0, 256, state.ring_shape(B, H, S)).astype(np.uint8)
+    ring_t = torch.from_numpy(ring0.copy())
+    frames = executor.run_gop(torch.from_numpy(ops), resid, ring_t, F, H, S)
+    ring_h = ring0.copy()
+    frames_h = executor.run_gop_host(ops, resid.numpy(), ring_h, F, H, S)
+    np.testing.assert_array_equal(frames_h, frames.numpy())
+    np.testing.assert_array_equal(ring_h, ring_t.numpy())
+
+
+def test_wrapper_checks_inputs_and_never_falls_back():
+    ops = torch.zeros((B, 16, 256, 4), dtype=torch.int32)
+    resid = torch.zeros((B, 16, 256, 64), dtype=torch.int32)
+    ring = _zero_ring()
+    with pytest.raises(ValueError):
+        executor.run_gop(ops.to(torch.int64), resid, ring, F, H, S)
+    with pytest.raises(ValueError):
+        executor.run_gop(ops, resid[:, :8].contiguous(), ring, F, H, S)
+    with pytest.raises(ValueError):
+        executor.run_gop(ops, resid, ring.to(torch.int32), F, H, S)
+    with pytest.raises(NotImplementedError):
+        executor.run_gop(ops, resid, ring, F, 240, 512)
+    # a tensor on another device never takes the plain path silently
+    meta = [t.to("meta") for t in (ops, resid, ring)]
+    with pytest.raises(ValueError):
+        executor.run_gop(*meta, F, H, S)
