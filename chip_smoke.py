@@ -6,10 +6,26 @@ Builds the executor kernel from mobiclipdecoder_tpu_torch/csrc with nvcc,
 holds it against its plain PyTorch version, drives the main path (the
 fused whole-GOP decode of 8 DS MODS 256x192 streams, 2 GOPs of 24 frames)
 and the per-frame path, checks both against the sequential oracle, and
-times the kernel and the decoder.  Every phase raises on a mismatch.
+times the kernel and the decoder.  Then it covers the other geometries
+and the user's entry points:
 
-Prints one line per phase, then a JSON line describing each kernel, the
-card's name and power limit, and last a JSON line
+  [geometry]   3DS 400x240 (stride 512) and Wii 640x480 (stride 1024, the
+               Moflex profile): kernel == plain executor, the format-
+               surface streams through decode_stream_chunk == oracle, and
+               the executor's ms/GOP at B=8, F=24;
+  [k2]         the single-frame launch (F=1) == plain at all three sizes;
+  [transcode]  `python -m mobiclipdecoder_tpu_torch decode` (in process)
+               of a MODS 256x192 with IMA audio, a Moflex 400x240 with
+               IMA audio and a MOC5 640x480, 20 frames each: the .y4m and
+               .wav bytes equal those of `--engine oracle`;
+  [batch]      the corpus worker over 8 MODS files of 2 GOPs each, 8
+               streams per launch: every shard equals the oracle worker's.
+
+Every phase raises on a mismatch.  Before each run of a user path the
+kernel's launch counters are set to 0, and they are read after it.
+
+Prints one line per phase with its seconds, then a JSON line describing
+each kernel, the card's name and power limit, and last a JSON line
 {"ok": true, "device": {...}}.  Needs a CUDA device; without one it exits
 non-zero and prints no result.  Imports nothing of JAX: the codec modules
 it shares with the JAX package come through mobiclipdecoder_tpu_torch.shared.
@@ -17,28 +33,45 @@ it shares with the JAX package come through mobiclipdecoder_tpu_torch.shared.
 Besides the checks it measures, on the same card in the same run: the
 executor's time at B = 8, 32, 128 and 256 streams, the time of each stage
 of one GOP's dispatch, the plain executor on the card against the kernel
-at the Moflex shape, and the sustained frames/s of decode_gops over three
-windows of SUSTAIN_GOPS GOPs.
+at the Moflex shape, the sustained frames/s of decode_gops over three
+windows of SUSTAIN_GOPS GOPs, the executor at each geometry, and the
+frames/s of the transcoder and of the corpus worker.
 """
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
+
+from mobiclipdecoder_tpu_torch.runtime.transcode import width_stride
 
 W, H = 256, 192
 B, F = 8, 24
 NGOPS = 2
 SUSTAIN_GOPS = 120          # about 3 s of decode_gops per window
 SWEEP_B = (8, 32, 128, 256)
+WIDE = ((400, 240), (640, 480))     # strides 512 and 1024, Moflex profile
+TRANSCODE_FRAMES = 20               # crosses one CHUNK_FRAMES (16) seam
+BATCH_FILES, BATCH_GOP = 8, 5       # [batch]: 8 files x 2 GOPs of 5 frames
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+@contextlib.contextmanager
+def phase(name: str):
+    t0 = time.perf_counter()
+    yield
+    log(f"[{name}] phase took {time.perf_counter() - t0:.1f} s")
 
 
 def smi_line() -> str:
@@ -49,19 +82,31 @@ def smi_line() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
-def synth_gops(version, seeds, ngops, nframes):
+def zero_counts() -> None:
+    from mobiclipdecoder_tpu_torch.ops import executor
+    executor.launches = 0
+    executor.frame_launches = 0
+
+
+def read_counts() -> tuple[int, int]:
+    """(whole-GOP launches, single-frame launches) since zero_counts."""
+    from mobiclipdecoder_tpu_torch.ops import executor
+    return executor.launches, executor.frame_launches
+
+
+def synth_gops(version, seeds, ngops, nframes, size=(W, H)):
     """gops[g][f][b]: packet of frame f of stream b in GOP g (each GOP
     starts with an I-frame)."""
     from mobiclipdecoder_tpu_torch.shared.testing.synth import StreamSynthesizer
-    synths = [StreamSynthesizer(W, H, version, seed=s) for s in seeds]
+    synths = [StreamSynthesizer(*size, version, seed=s) for s in seeds]
     return [[[s.iframe(0x18) if f == 0 else s.pframe() for s in synths]
              for f in range(nframes)] for _ in range(ngops)]
 
 
-def oracle_frames(version, packets):
+def oracle_frames(version, packets, size=(W, H)):
     """(len(packets), HH, S) uint8 from the sequential oracle."""
     from mobiclipdecoder_tpu_torch.shared.models.oracle_video import OracleDecoder
-    o = OracleDecoder(W, H, version)
+    o = OracleDecoder(*size, version)
     S = o.stride
     out = []
     for pkt in packets:
@@ -73,7 +118,7 @@ def oracle_frames(version, packets):
     return np.stack(out)
 
 
-def packed_gop(version, gop):
+def packed_gop(version, gop, size=(W, H)):
     """Native scan of one GOP -> (ops, coefs, sizes) host arrays, the
     executor's inputs before the residual pre-pass."""
     from mobiclipdecoder_tpu_torch.shared.utils.native import NativePlanner
@@ -82,7 +127,7 @@ def packed_gop(version, gop):
     nb = len(gop[0])
     parts = []
     for b in range(nb):
-        r = NativePlanner(W, H, int(version)).scan_gop_packed(
+        r = NativePlanner(*size, int(version)).scan_gop_packed(
             [fr[b] for fr in gop])
         if r["err"] or r["val_overflow"] or r["done"] != len(gop):
             raise RuntimeError(f"native scan of stream {b} failed")
@@ -90,39 +135,41 @@ def packed_gop(version, gop):
     return _part_dense_arrays(parts)
 
 
-def kernel_vs_plain(version, gop, label, seed):
+def kernel_vs_plain(version, gop, label, seed, size=(W, H)):
     """Run one packed GOP through the CUDA kernel and through the plain
     executor on the CPU, from the same random ring; frames and ring must
     be equal.  Returns (max_abs_err, kernel_ms, plain_ms, inputs)."""
     from mobiclipdecoder_tpu_torch import state
     from mobiclipdecoder_tpu_torch.ops import executor
     from mobiclipdecoder_tpu_torch.ops.residuals import _residuals
-    ops, coefs, sizes = packed_gop(version, gop)
+    ops, coefs, sizes = packed_gop(version, gop, size)
     nb, nct = ops.shape[:2]
     nf = len(gop)
-    S = 256
+    h, S = size[1], width_stride(size[0])
     ring0 = np.random.default_rng(seed).integers(
-        0, 256, state.ring_shape(nb, H, S)).astype(np.uint8)
+        0, 256, state.ring_shape(nb, h, S)).astype(np.uint8)
 
-    def resid(dev):
-        c = torch.from_numpy(coefs).to(dev).view(-1, 64)
-        s = torch.from_numpy(sizes).to(dev).view(-1)
+    def resid(on_card):
+        c = torch.from_numpy(coefs).view(-1, 64)
+        s = torch.from_numpy(sizes).view(-1)
+        if on_card:
+            c, s = c.cuda(), s.cuda()
         return _residuals(c, s).view(nb, nct, 256, 64)
 
     ops_c = torch.from_numpy(ops).cuda()
-    res_c = resid("cuda")
+    res_c = resid(True)
     ring_c = torch.from_numpy(ring0).cuda()
     torch.cuda.synchronize()
     e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     e0.record()
-    frames_c = executor.run_gop(ops_c, res_c, ring_c, nf, H, S)
+    frames_c = executor.run_gop(ops_c, res_c, ring_c, nf, h, S)
     e1.record()
     torch.cuda.synchronize()
     k_ms = e0.elapsed_time(e1)
     ring_p = torch.from_numpy(ring0.copy())
     t0 = time.perf_counter()
-    frames_p = executor.run_gop(torch.from_numpy(ops), resid("cpu"), ring_p,
-                                nf, H, S)
+    frames_p = executor.run_gop(torch.from_numpy(ops), resid(False), ring_p,
+                                nf, h, S)
     p_ms = (time.perf_counter() - t0) * 1e3
     err = max(
         int((frames_c.cpu().to(torch.int32)
@@ -134,7 +181,7 @@ def kernel_vs_plain(version, gop, label, seed):
     log(f"[kernel_vs_plain] {label} B={nb} F={nf} nct={nct}: frames and "
         f"ring equal (max abs err 0); kernel {k_ms:.3f} ms (first launch), "
         f"plain {p_ms:.1f} ms (CPU)")
-    return err, k_ms, p_ms, (ops_c, res_c, ring_c, nf)
+    return err, k_ms, p_ms, (ops_c, res_c, ring_c, nf, h, S)
 
 
 def plain_on_card(inputs) -> float:
@@ -143,14 +190,14 @@ def plain_on_card(inputs) -> float:
     from mobiclipdecoder_tpu_torch import state
     from mobiclipdecoder_tpu_torch.ops import executor
     from mobiclipdecoder_tpu_torch.ops.executor_ref import run_gop_ref
-    ops_c, res_c, ring_c, nf = inputs
+    ops_c, res_c, ring_c, nf, h, S = inputs
     ring_k, ring_p = ring_c.clone(), ring_c.clone()
-    frames_k = executor.run_gop(ops_c, res_c, ring_k, nf, H, 256)
+    frames_k = executor.run_gop(ops_c, res_c, ring_k, nf, h, S)
     frames_p = torch.empty_like(frames_k)
     tabs = state.kernel_tables(ops_c.device)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    run_gop_ref(ops_c, res_c, ring_p, frames_p, tabs, H, 256)
+    run_gop_ref(ops_c, res_c, ring_p, frames_p, tabs, h, S)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
     if not (torch.equal(frames_k, frames_p) and torch.equal(ring_k, ring_p)):
@@ -161,32 +208,51 @@ def plain_on_card(inputs) -> float:
 def time_kernel(inputs, reps=20) -> float:
     """Mean kernel time (ms) over `reps` launches, device-resident."""
     from mobiclipdecoder_tpu_torch.ops import executor
-    ops_c, res_c, ring_c, nf = inputs
+    ops_c, res_c, ring_c, nf, h, S = inputs
     for _ in range(3):
-        executor.run_gop(ops_c, res_c, ring_c, nf, H, 256)
+        executor.run_gop(ops_c, res_c, ring_c, nf, h, S)
     torch.cuda.synchronize()
     e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     e0.record()
     for _ in range(reps):
-        executor.run_gop(ops_c, res_c, ring_c, nf, H, 256)
+        executor.run_gop(ops_c, res_c, ring_c, nf, h, S)
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / reps
 
 
+def replicate(inputs, nb, reps=20) -> float:
+    """Kernel ms/GOP with a GOP's streams replicated to `nb` streams (one
+    block per stream), from a zero ring."""
+    ops_c, res_c, _ring, nf, h, S = inputs
+    k = nb // ops_c.shape[0]
+    ring = torch.zeros((nb,) + tuple(_ring.shape[1:]), dtype=torch.uint8,
+                       device=_ring.device)
+    return time_kernel((ops_c.repeat(k, 1, 1, 1).contiguous(),
+                        res_c.repeat(k, 1, 1, 1).contiguous(), ring, nf, h,
+                        S), reps)
+
+
+def fixed_cost_ms(size, nf=16, reps=10) -> float:
+    """Kernel ms per frame of a B=1 GOP whose frames hold no op: the
+    executor's fixed cost per frame (zeroing the working plane and
+    committing it to the ring, byte by byte in one block)."""
+    from mobiclipdecoder_tpu_torch import state
+    from mobiclipdecoder_tpu_torch.ops.packing import CHUNK
+    h, S = size[1], width_stride(size[0])
+    ops = torch.zeros((1, nf, CHUNK, 4), dtype=torch.int32)
+    ops[0, :, 0, 1] = torch.arange(nf)          # header [0, f, first, last]
+    ops[0, :, 0, 2:] = 1
+    resid = torch.zeros((1, nf, CHUNK, 64), dtype=torch.int32)
+    ring = torch.zeros(state.ring_shape(1, h, S), dtype=torch.uint8)
+    return time_kernel((ops.cuda(), resid.cuda(), ring.cuda(), nf, h, S),
+                       reps) / nf
+
+
 def b_sweep(inputs) -> dict:
     """Kernel ms/GOP with the main-path GOP replicated to each B of
-    SWEEP_B streams (one block per stream)."""
-    ops_c, res_c, _ring, nf = inputs
-    out = {}
-    for nb in SWEEP_B:
-        k = nb // ops_c.shape[0]
-        ring = torch.zeros((nb,) + tuple(_ring.shape[1:]), dtype=torch.uint8,
-                           device="cuda")
-        out[nb] = time_kernel((ops_c.repeat(k, 1, 1, 1).contiguous(),
-                               res_c.repeat(k, 1, 1, 1).contiguous(), ring,
-                               nf))
-    return out
+    SWEEP_B streams."""
+    return {nb: replicate(inputs, nb) for nb in SWEEP_B}
 
 
 def stage_breakdown(version, gop, reps=10) -> dict:
@@ -268,6 +334,169 @@ def sustained(version, gops, windows=3) -> list[float]:
     return rates
 
 
+def surface_streams(version, size):
+    """The format-surface streams of the JAX package's on-chip verify
+    (tools/verify_onchip.py): default, VLC table 1 with a dQP ladder, the
+    Moflex QP-clamp edges, and big escape levels (the dense upload)."""
+    from mobiclipdecoder_tpu_torch.shared.testing.synth import StreamSynthesizer
+    s1 = StreamSynthesizer(*size, version, seed=1234)
+    s2 = StreamSynthesizer(*size, version, seed=77)
+    s3 = StreamSynthesizer(*size, version, seed=78)
+    s4 = StreamSynthesizer(*size, version, seed=79, big_levels=0.3)
+    return {
+        "default": [s1.iframe(0x18) if i == 0 else s1.pframe()
+                    for i in range(6)],
+        "table1+dqp": [s2.iframe(0x18, table=1), s2.pframe(dq=2),
+                       s2.pframe(dq=-1), s2.pframe(dq=3)],
+        "qp-clamp": [s3.iframe(2), s3.pframe(dq=-3),
+                     s3.iframe(0x3F, table=1), s3.pframe(dq=7)],
+        "big-levels": [s4.iframe(0x18), s4.pframe()],
+    }
+
+
+def format_surface(version, size) -> int:
+    """decode_stream_chunk on the card == oracle for every surface
+    stream, through one decoder (each stream starts with an I-frame).
+    Returns the frames checked."""
+    from mobiclipdecoder_tpu_torch.ops.vmem_engine import VmemVideoDecoder
+    dec = VmemVideoDecoder(*size, version, native=True, device="cuda")
+    n = 0
+    for name, pkts in surface_streams(version, size).items():
+        yuv, offs, err = dec.decode_stream_chunk(pkts)
+        if err is not None or offs != [len(p) for p in pkts]:
+            raise AssertionError(f"{size} {name}: err {err}, offsets {offs}")
+        exp = oracle_frames(version, pkts, size)
+        if yuv.shape != exp.shape or not (yuv == exp).all():
+            bad = np.argwhere((yuv != exp).any(axis=(1, 2))).ravel()
+            raise AssertionError(f"{size} {name}: frames {bad.tolist()} "
+                                 f"differ from the oracle")
+        n += len(pkts)
+    return n
+
+
+# ------------------------------------------------------------ containers
+def ima_packets(nframes, channels, key_at):
+    """Per-frame IMA ADPCM audio packets of a MODS file: each channel's
+    stream restarts at every keyframe, the first packet of a segment
+    carrying its 4-byte state header."""
+    from mobiclipdecoder_tpu_torch.shared.models.audio_ima import encode_ima
+    segments = sorted(key_at) + [nframes]
+    per_frame = [[] for _ in range(nframes)]
+    for s in range(len(segments) - 1):
+        f0, f1 = segments[s], segments[s + 1]
+        for c in range(channels):
+            t = np.arange((f1 - f0) * 256) + f0 * 256
+            blob = encode_ima((4000 * np.sin(t / (5 + c))).astype(np.int16),
+                              index0=8)
+            hdr, body = blob[:4], blob[4:]
+            for i in range(f1 - f0):
+                chunk = body[i * 128:(i + 1) * 128]
+                chunk = chunk + bytes(128 - len(chunk))
+                per_frame[f0 + i].append((hdr + chunk) if i == 0 else chunk)
+    return per_frame
+
+
+def mods_container(nframes, seed, key_at) -> bytes:
+    """DS MODS 256x192 with 2-channel IMA audio, keyframes at `key_at`."""
+    from mobiclipdecoder_tpu_torch.shared.containers.mods import ModsMuxer
+    from mobiclipdecoder_tpu_torch.shared.models.oracle_video import MobiclipVersion
+    from mobiclipdecoder_tpu_torch.shared.testing.synth import StreamSynthesizer
+    synth = StreamSynthesizer(W, H, MobiclipVersion.MODS_DS, seed=seed)
+    mux = ModsMuxer(W, H, fps=24.0, audio_codec=3, nb_channel=2,
+                    frequency=16384)
+    audio = ima_packets(nframes, 2, key_at)
+    for i in range(nframes):
+        if i in key_at:
+            video = synth.iframe(0x18, pad=False)
+            synth.frame_idx = 1         # P-frames restart their references
+        else:
+            video = synth.pframe(pad=False)
+        mux.add_frame(video, audio[i], keyframe=i in key_at)
+    return mux.to_bytes()
+
+
+def moflex_container(nframes, seed, size) -> bytes:
+    """Moflex with one video stream and 2-channel IMA audio."""
+    from mobiclipdecoder_tpu_torch.shared.containers.moflex import (
+        AudioStream, MoflexMuxer, VideoStream)
+    from mobiclipdecoder_tpu_torch.shared.models.audio_ima import encode_ima
+    from mobiclipdecoder_tpu_torch.shared.models.oracle_video import MobiclipVersion
+    from mobiclipdecoder_tpu_torch.shared.testing.synth import StreamSynthesizer
+    synth = StreamSynthesizer(*size, MobiclipVersion.MOFLEX_3DS, seed=seed)
+    mux = MoflexMuxer([
+        VideoStream(stream_index=0, codec_id=0, fps_rate=24, fps_scale=1,
+                    width=size[0], height=size[1]),
+        AudioStream(stream_index=1, codec_id=1, frequency=16384,
+                    channels=2)])
+    for i in range(nframes):
+        mux.add_frame(0, synth.iframe(0x18, pad=False) if i == 0
+                      else synth.pframe(pad=False))
+        frame, bodies = bytearray(), []
+        for c in range(2):
+            t = np.arange(512) + i * 512
+            blob = encode_ima((3000 * np.sin(t / (6 + c))).astype(np.int16),
+                              index0=4)
+            frame += blob[:4]
+            bodies.append(blob[4:4 + 256])
+        for k in range(0, 256, 128):
+            for c in range(2):
+                frame += bodies[c][k:k + 128]
+        mux.add_frame(1, bytes(frame))
+    return mux.to_bytes()
+
+
+def moc5_container(nframes, seed, size) -> bytes:
+    from mobiclipdecoder_tpu_torch.shared.containers.moc5 import Moc5Muxer
+    from mobiclipdecoder_tpu_torch.shared.models.oracle_video import MobiclipVersion
+    from mobiclipdecoder_tpu_torch.shared.testing.synth import StreamSynthesizer
+    synth = StreamSynthesizer(*size, MobiclipVersion.MOFLEX_3DS, seed=seed)
+    mux = Moc5Muxer(*size, fps=30.0)
+    for i in range(nframes):
+        mux.add_frame(synth.iframe(0x18) if i == 0 else synth.pframe())
+    return mux.to_bytes()
+
+
+def cli(argv) -> dict:
+    """`python -m mobiclipdecoder_tpu_torch <argv>` in this process;
+    returns the JSON stats it prints."""
+    from mobiclipdecoder_tpu_torch.__main__ import main as cli_main
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(argv)
+    if rc != 0:
+        raise AssertionError(f"{argv}: exit {rc}")
+    return json.loads(buf.getvalue().strip().splitlines()[-1])
+
+
+def transcode_case(tmp: Path, name: str, blob: bytes, suffix: str) -> dict:
+    """Decode one container with the CLI, engine cuda (the default) and
+    oracle; every output file's bytes must be equal."""
+    src = tmp / f"{name}{suffix}"
+    src.write_bytes(blob)
+    zero_counts()
+    st = cli(["decode", str(src), str(tmp / f"{name}_cuda")])
+    launches = read_counts()
+    if sum(launches) < 1:
+        raise AssertionError(f"{name}: the cuda engine launched no kernel")
+    so = cli(["decode", str(src), str(tmp / f"{name}_oracle"), "--engine",
+              "oracle"])
+    outs = {}
+    for eng in ("cuda", "oracle"):
+        outs[eng] = {p.suffix: p.read_bytes()
+                     for p in sorted(tmp.glob(f"{name}_{eng}.*"))}
+    if sorted(outs["cuda"]) != sorted(outs["oracle"]) or not outs["cuda"]:
+        raise AssertionError(f"{name}: outputs {sorted(outs['cuda'])} vs "
+                             f"{sorted(outs['oracle'])}")
+    for ext, data in outs["cuda"].items():
+        if data != outs["oracle"][ext]:
+            raise AssertionError(f"{name}: {ext} bytes differ from the "
+                                 f"oracle engine's")
+    if st["frames"] != so["frames"] or st["frames"] != TRANSCODE_FRAMES:
+        raise AssertionError(f"{name}: {st['frames']} vs {so['frames']}")
+    return {"stats": st, "oracle": so, "launches": launches,
+            "files": {k: len(v) for k, v in outs["cuda"].items()}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -277,7 +506,10 @@ def main() -> int:
     from mobiclipdecoder_tpu_torch.ops import executor
     from mobiclipdecoder_tpu_torch.ops.vmem_engine import (VmemBatchDecoder,
                                                            VmemVideoDecoder)
+    from mobiclipdecoder_tpu_torch.ops.residuals import _residuals
+    from mobiclipdecoder_tpu_torch.parallel.distributed import run_worker
     from mobiclipdecoder_tpu_torch.utils import build
+    t_start = time.perf_counter()
 
     # 1. device
     name = torch.cuda.get_device_name(0)
@@ -296,102 +528,256 @@ def main() -> int:
 
     # workload: 8 DS streams x 2 GOPs; streams 0-1 of GOP 1 feed phase 3
     ds = MobiclipVersion.MODS_DS
+    mf = MobiclipVersion.MOFLEX_3DS
     t0 = time.perf_counter()
     gops = synth_gops(ds, range(B), NGOPS, F)
     log(f"[workload] synthesized {B} DS streams x {NGOPS} GOPs x {F} frames "
         f"in {time.perf_counter() - t0:.1f} s")
 
     # 3. kernel vs plain
-    kernel_vs_plain(ds, [fr[:2] for fr in gops[0]], "DS 256x192", 1)
-    mf = MobiclipVersion.MOFLEX_3DS
-    *_, mf_inputs = kernel_vs_plain(mf, synth_gops(mf, [0], 1, 8)[0],
-                                    "Moflex 256x192", 2)
-    err, k_first_ms, plain_ms, main_inputs = kernel_vs_plain(
-        ds, gops[0], "DS 256x192 main-path shape", 3)
+    with phase("kernel_vs_plain"):
+        kernel_vs_plain(ds, [fr[:2] for fr in gops[0]], "DS 256x192", 1)
+        *_, mf_inputs = kernel_vs_plain(mf, synth_gops(mf, [0], 1, 8)[0],
+                                        "Moflex 256x192", 2)
+        err, k_first_ms, plain_ms, main_inputs = kernel_vs_plain(
+            ds, gops[0], "DS 256x192 main-path shape", 3)
 
     # 4. main path: decode_gops over 2 GOPs, ring carried across
-    dec = VmemBatchDecoder(W, H, ds, batch=B, native=True, device="cuda")
-    executor.launches = 0
-    t0 = time.perf_counter()
-    outs = list(dec.decode_gops(iter(gops)))
-    wall = time.perf_counter() - t0
-    launches = executor.launches
-    if launches < 1:
-        raise AssertionError("main path launched no executor kernel")
-    for g, out in enumerate(outs):
-        if out.shape != (F, B, H + H // 2, 256) or out.dtype != np.uint8:
-            raise AssertionError(f"GOP {g}: shape {out.shape} {out.dtype}")
-    t0 = time.perf_counter()
-    for b in (0, 1):
-        exp = oracle_frames(ds, [gops[g][f][b] for g in range(NGOPS)
-                                 for f in range(F)])
-        got = np.concatenate([outs[g][:, b] for g in range(NGOPS)])
-        bad = np.argwhere((got != exp).any(axis=(1, 2))).ravel()
-        if bad.size:
-            raise AssertionError(f"stream {b}: frames {bad.tolist()} differ "
-                                 f"from the oracle")
-    log(f"[main_path] decode_gops B={B} {NGOPS}x{F} frames -> "
-        f"{len(outs)} x {outs[0].shape} uint8; streams 0-1 equal the oracle "
-        f"on {NGOPS * F} frames each (oracle {time.perf_counter() - t0:.1f}"
-        f" s); executor launches {launches}; wall {wall:.2f} s incl. warm-up")
+    with phase("main_path"):
+        dec = VmemBatchDecoder(W, H, ds, batch=B, native=True, device="cuda")
+        zero_counts()
+        t0 = time.perf_counter()
+        outs = list(dec.decode_gops(iter(gops)))
+        wall = time.perf_counter() - t0
+        launches, _f1 = read_counts()
+        if launches < 1:
+            raise AssertionError("main path launched no executor kernel")
+        for g, out in enumerate(outs):
+            if out.shape != (F, B, H + H // 2, 256) or out.dtype != np.uint8:
+                raise AssertionError(f"GOP {g}: shape {out.shape} {out.dtype}")
+        t0 = time.perf_counter()
+        for b in (0, 1):
+            exp = oracle_frames(ds, [gops[g][f][b] for g in range(NGOPS)
+                                     for f in range(F)])
+            got = np.concatenate([outs[g][:, b] for g in range(NGOPS)])
+            bad = np.argwhere((got != exp).any(axis=(1, 2))).ravel()
+            if bad.size:
+                raise AssertionError(f"stream {b}: frames {bad.tolist()} "
+                                     f"differ from the oracle")
+        log(f"[main_path] decode_gops B={B} {NGOPS}x{F} frames -> "
+            f"{len(outs)} x {outs[0].shape} uint8; streams 0-1 equal the "
+            f"oracle on {NGOPS * F} frames each (oracle "
+            f"{time.perf_counter() - t0:.1f} s); executor launches "
+            f"{launches}; wall {wall:.2f} s incl. warm-up")
 
-    # 5. per-frame path
-    pkts = synth_gops(ds, [100], 1, 10)[0]
-    pkts = [fr[0] for fr in pkts]
-    vd = VmemVideoDecoder(W, H, ds, native=True, device="cuda")
-    yuv, offs, err_i = vd.decode_stream_chunk(pkts[:8])
-    if err_i is not None or yuv.shape[0] != 8 or offs != [len(p) for p in
-                                                         pkts[:8]]:
-        raise AssertionError(f"decode_stream_chunk: err {err_i}, "
-                             f"{yuv.shape}, offsets {offs}")
-    rest = [np.concatenate(vd.decode_frame(p)) for p in pkts[8:]]
-    got = np.concatenate([yuv, np.stack(rest)])
-    exp = oracle_frames(ds, pkts)
-    if not (got == exp).all():
-        bad = np.argwhere((got != exp).any(axis=(1, 2))).ravel()
-        raise AssertionError(f"per-frame path: frames {bad.tolist()} differ")
-    log("[per_frame] decode_stream_chunk(8) + decode_frame x2 equal the "
-        "oracle on 10 frames")
+    # 5. per-frame path: 8 frames as one chunk, then 2 single-frame
+    # launches (the per-round form)
+    with phase("per_frame"):
+        pkts = synth_gops(ds, [100], 1, 10)[0]
+        pkts = [fr[0] for fr in pkts]
+        vd = VmemVideoDecoder(W, H, ds, native=True, device="cuda")
+        zero_counts()
+        yuv, offs, err_i = vd.decode_stream_chunk(pkts[:8])
+        rest = [np.concatenate(vd.decode_frame(p)) for p in pkts[8:]]
+        pf_launches = read_counts()
+        if err_i is not None or yuv.shape[0] != 8 or offs != [
+                len(p) for p in pkts[:8]]:
+            raise AssertionError(f"decode_stream_chunk: err {err_i}, "
+                                 f"{yuv.shape}, offsets {offs}")
+        if pf_launches[0] < 1 or pf_launches[1] != 2:
+            raise AssertionError(f"per-frame path launches {pf_launches}")
+        got = np.concatenate([yuv, np.stack(rest)])
+        exp = oracle_frames(ds, pkts)
+        if not (got == exp).all():
+            bad = np.argwhere((got != exp).any(axis=(1, 2))).ravel()
+            raise AssertionError(f"per-frame path: frames {bad.tolist()} "
+                                 f"differ")
+        log(f"[per_frame] decode_stream_chunk(8) + decode_frame x2 equal the "
+            f"oracle on 10 frames; launches: whole-GOP {pf_launches[0]}, "
+            f"single-frame {pf_launches[1]}")
 
     # 6. timing
-    k_ms = time_kernel(main_inputs)
-    mf_k_ms = time_kernel(mf_inputs)
-    mf_plain_ms = plain_on_card(mf_inputs)
-    # op rows per stream: the chunk headers' counts (at most 255 each)
-    rows = int(main_inputs[0][:, :, 0, 0].clamp(0, 255).sum()) // B
-    log(f"[timing] executor kernel {k_ms:.3f} ms/GOP (B={B}, F={F}, "
-        f"device-resident, CUDA events, mean of 20; {rows} op rows per "
-        f"stream, {k_ms * 1e3 / rows:.3f} us each) vs plain executor "
-        f"{plain_ms:.1f} ms/GOP on the host CPU (same inputs) | {smi}")
-    log(f"[timing] on the card, Moflex 256x192 B=1 F=8: kernel "
-        f"{mf_k_ms:.3f} ms vs plain executor {mf_plain_ms:.1f} ms (CUDA "
-        f"tensors, host clock + sync, frames equal) | {smi}")
-    sweep = b_sweep(main_inputs)
-    log("[b_sweep] kernel ms/GOP, main-path GOP replicated to B streams: "
-        + ", ".join(f"B={nb} {ms:.3f} ms ({nb * F / ms * 1e3:.1f} frames/s)"
-                    for nb, ms in sweep.items()) + f" | {smi}")
-    stages = stage_breakdown(ds, gops[0])
-    dev_ms = sum(stages[k] for k in ("unpack blob", "residuals", "executor",
-                                     "download"))
-    log("[stages] one GOP B=8 F=24, stage by stage, median of 10: "
-        + ", ".join(f"{k} {v:.3f} ms" for k, v in stages.items())
-        + f"; device stages {dev_ms:.3f} ms | {smi}")
-    rates = sustained(ds, gops)
-    med = float(np.median(rates))
-    log(f"[sustained] decode_gops {SUSTAIN_GOPS} GOPs x {F * B} frames per "
-        f"window (host scan + pack + upload + decode + download): "
-        + ", ".join(f"{r:.1f}" for r in rates) + f" frames/s; median "
-        f"{med:.1f} ({F * B / med * 1e3:.3f} ms/GOP; device stages "
-        f"{dev_ms / (F * B / med * 1e3):.3f} of that wall) | {smi}")
+    with phase("timing"):
+        k_ms = time_kernel(main_inputs)
+        mf_k_ms = time_kernel(mf_inputs)
+        mf_plain_ms = plain_on_card(mf_inputs)
+        # op rows per stream: the chunk headers' counts (at most 255 each)
+        rows = int(main_inputs[0][:, :, 0, 0].clamp(0, 255).sum()) // B
+        log(f"[timing] executor kernel {k_ms:.3f} ms/GOP (B={B}, F={F}, "
+            f"device-resident, CUDA events, mean of 20; {rows} op rows per "
+            f"stream, {k_ms * 1e3 / rows:.3f} us each) vs plain executor "
+            f"{plain_ms:.1f} ms/GOP on the host CPU (same inputs) | {smi}")
+        log(f"[timing] on the card, Moflex 256x192 B=1 F=8: kernel "
+            f"{mf_k_ms:.3f} ms vs plain executor {mf_plain_ms:.1f} ms (CUDA "
+            f"tensors, host clock + sync, frames equal) | {smi}")
+        sweep = b_sweep(main_inputs)
+        log("[b_sweep] kernel ms/GOP, main-path GOP replicated to B streams: "
+            + ", ".join(f"B={nb} {ms:.3f} ms ({nb * F / ms * 1e3:.1f} "
+                        f"frames/s)" for nb, ms in sweep.items())
+            + f" | {smi}")
+        stages = stage_breakdown(ds, gops[0])
+        dev_ms = sum(stages[k] for k in ("unpack blob", "residuals",
+                                         "executor", "download"))
+        log("[stages] one GOP B=8 F=24, stage by stage, median of 10: "
+            + ", ".join(f"{k} {v:.3f} ms" for k, v in stages.items())
+            + f"; device stages {dev_ms:.3f} ms | {smi}")
+        rates = sustained(ds, gops)
+        med = float(np.median(rates))
+        log(f"[sustained] decode_gops {SUSTAIN_GOPS} GOPs x {F * B} frames "
+            f"per window (host scan + pack + upload + decode + download): "
+            + ", ".join(f"{r:.1f}" for r in rates) + f" frames/s; median "
+            f"{med:.1f} ({F * B / med * 1e3:.3f} ms/GOP; device stages "
+            f"{dev_ms / (F * B / med * 1e3):.3f} of that wall) | {smi}")
 
-    log(json.dumps({"kernels": [{
-        "name": "gop_executor", "route": "cuda",
-        "source": "mobiclipdecoder_tpu_torch/csrc/gop_executor.cu",
-        "replaces": "mobiclipdecoder_tpu/ops/vmem_engine.py:1286",
-        "launches": launches, "max_abs_err": err,
-        "ms": k_ms, "plain_ms": plain_ms, "plain_on": "host CPU",
-        "on_card_moflex_b1_f8": {"ms": mf_k_ms,
-                                 "plain_ms": mf_plain_ms}}]}))
+    # 7. the wide geometries: kernel == plain, format surface == oracle,
+    # executor ms/GOP at B=8, F=24
+    geo = {}
+    for size in WIDE:
+        label = f"{size[0]}x{size[1]}"
+        with phase(f"geometry {label}"):
+            t0 = time.perf_counter()
+            gop = synth_gops(mf, [7], 1, F, size)[0]
+            t_syn = time.perf_counter() - t0
+            g_err, _k, g_plain_ms, g_in = kernel_vs_plain(
+                mf, gop[:4], f"Moflex {label}", 4, size)
+            g_k_ms = time_kernel(g_in, reps=10)
+            t0 = time.perf_counter()
+            n_surf = format_surface(mf, size)
+            t_surf = time.perf_counter() - t0
+            ops, coefs, sizes = packed_gop(mf, gop, size)
+            nct = ops.shape[1]
+            nct_used = int((ops[0, :, 0, 0] > 0).sum())
+            res_c = _residuals(torch.from_numpy(coefs).cuda().view(-1, 64),
+                               torch.from_numpy(sizes).cuda().view(-1)
+                               ).view(1, nct, 256, 64)
+            gop_in = (torch.from_numpy(ops).cuda(), res_c, g_in[2], F,
+                      size[1], width_stride(size[0]))
+            b8_ms = replicate(gop_in, B, reps=5)
+            geo[label] = {"err": g_err, "ms": g_k_ms, "plain_ms": g_plain_ms,
+                          "b8_f24_ms": b8_ms, "chunks": nct_used,
+                          "bucket": nct}
+            log(f"[geometry] {label} stride {width_stride(size[0])}: kernel "
+                f"== plain (B=1 F=4: kernel {g_k_ms:.3f} ms, mean of 10, vs "
+                f"plain {g_plain_ms:.1f} ms on the host CPU); format "
+                f"surface (default, table1+dqp, qp-clamp, big-levels) "
+                f"{n_surf} frames == oracle through decode_stream_chunk on "
+                f"the card ({t_surf:.1f} s); one 24-frame GOP is "
+                f"{nct_used} chunks (bucket {nct}); executor {b8_ms:.3f} "
+                f"ms/GOP at B={B}, F={F} (GOP replicated, mean of 5; "
+                f"{B * F / b8_ms * 1e3:.1f} frames/s); synth {t_syn:.1f} s "
+                f"| {smi}")
+
+    # 8. the single-frame launch (K2's form) == plain at each geometry
+    k2 = {}
+    with phase("k2"):
+        for size, version, frame in (((W, H), ds, [gops[0][0][:1]]),
+                                     (WIDE[0], mf, None), (WIDE[1], mf, None)):
+            label = f"{size[0]}x{size[1]}"
+            if frame is None:
+                frame = synth_gops(version, [9], 1, 1, size)[0]
+            e1, _k, p1, in1 = kernel_vs_plain(version, frame,
+                                              f"F=1 {label}", 6, size)
+            k2[label] = {"err": e1, "ms": time_kernel(in1), "plain_ms": p1,
+                         "fixed_ms_per_frame": fixed_cost_ms(size)}
+        log("[k2] single-frame launch (F=1, B=1, an I-frame) == plain "
+            "executor at "
+            + ", ".join(f"{k}: kernel {v['ms']:.3f} ms (mean of 20) vs plain "
+                        f"{v['plain_ms']:.1f} ms (CPU)" for k, v in k2.items())
+            + f" | {smi}")
+        log("[k2] executor fixed cost per frame (16 frames with no op, B=1: "
+            "zero the plane, commit it to the ring): "
+            + ", ".join(f"{k} {v['fixed_ms_per_frame']:.4f} ms"
+                        for k, v in k2.items()) + f" | {smi}")
+
+    # 9. the CLI transcoder: cuda bytes == oracle bytes
+    trans = {}
+    with phase("transcode"), tempfile.TemporaryDirectory() as d:
+        tmp = Path(d)
+        t0 = time.perf_counter()
+        cases = (
+            ("mods_256x192", mods_container(TRANSCODE_FRAMES, 11, (0, 10)),
+             ".mods"),
+            ("moflex_400x240", moflex_container(TRANSCODE_FRAMES, 12,
+                                                WIDE[0]), ".moflex"),
+            ("moc5_640x480", moc5_container(TRANSCODE_FRAMES, 13, WIDE[1]),
+             ".moc5"))
+        log(f"[transcode] synthesized 3 containers x {TRANSCODE_FRAMES} "
+            f"frames in {time.perf_counter() - t0:.1f} s")
+        for cname, blob, suffix in cases:
+            r = transcode_case(tmp, cname, blob, suffix)
+            trans[cname] = r
+            log(f"[transcode] {cname}: decode --engine cuda -> "
+                f"{r['files']} bytes, equal to --engine oracle; "
+                f"{r['stats']['frames']} frames at {r['stats']['fps']} "
+                f"frames/s (oracle {r['oracle']['fps']} frames/s); launches "
+                f"whole-GOP {r['launches'][0]}, single-frame "
+                f"{r['launches'][1]} | {smi}")
+
+    # 10. the corpus worker: 8 streams per launch == oracle worker
+    with phase("batch"), tempfile.TemporaryDirectory() as d:
+        tmp = Path(d)
+        files = []
+        for i in range(BATCH_FILES):
+            p = tmp / f"c{i}.mods"
+            p.write_bytes(mods_container(2 * BATCH_GOP, 30 + i,
+                                         (0, BATCH_GOP)))
+            files.append(p)
+        zero_counts()
+        t0 = time.perf_counter()
+        sc = run_worker(files, tmp / "cuda", engine="cuda", batch=B)
+        t_cuda = time.perf_counter() - t0
+        batch_launches = read_counts()
+        t0 = time.perf_counter()
+        so = run_worker(files, tmp / "oracle", engine="oracle")
+        t_oracle = time.perf_counter() - t0
+        names = sorted(p.name for p in (tmp / "oracle").glob("*.npy"))
+        if (len(names) != 2 * BATCH_FILES or names != sorted(
+                p.name for p in (tmp / "cuda").glob("*.npy"))):
+            raise AssertionError(f"batch: shard files {names}")
+        for n in names:
+            if not np.array_equal(np.load(tmp / "cuda" / n),
+                                  np.load(tmp / "oracle" / n)):
+                raise AssertionError(f"batch: {n} differs from the oracle")
+        if sc["frames"] != so["frames"] or batch_launches[0] < 1:
+            raise AssertionError(f"batch: {sc} launches {batch_launches}")
+        batch_fps = sc["frames"] / t_cuda
+        log(f"[batch] run_worker engine=cuda batch={B}: {len(names)} shards,"
+            f" {sc['frames']} frames in {t_cuda:.2f} s = {batch_fps:.1f} "
+            f"frames/s (oracle worker {so['frames'] / t_oracle:.1f} "
+            f"frames/s); every shard == oracle; launches whole-GOP "
+            f"{batch_launches[0]} | {smi}")
+
+    src = "mobiclipdecoder_tpu_torch/csrc/gop_executor.cu"
+    k1 = "mobiclipdecoder_tpu/ops/vmem_engine.py:1286"
+    kernels = [{
+        "name": "gop_executor", "geometry": "256x192", "route": "cuda",
+        "source": src, "replaces": k1, "launches": launches,
+        "max_abs_err": err, "ms": k_ms, "plain_ms": plain_ms,
+        "plain_on": "host CPU", "shape": f"B={B} F={F}",
+        "on_card_moflex_b1_f8": {"ms": mf_k_ms, "plain_ms": mf_plain_ms}}]
+    for (label, g), cname in zip(geo.items(),
+                                 ("moflex_400x240", "moc5_640x480")):
+        kernels.append({
+            "name": "gop_executor", "geometry": label, "route": "cuda",
+            "source": src, "replaces": k1,
+            "launches": trans[cname]["launches"][0],
+            "max_abs_err": g["err"], "ms": g["ms"],
+            "plain_ms": g["plain_ms"], "plain_on": "host CPU",
+            "shape": "B=1 F=4", "b8_f24_ms": g["b8_f24_ms"]})
+    kernels.append({
+        "name": "gop_executor_f1", "route": "cuda", "source": src,
+        "replaces": "mobiclipdecoder_tpu/ops/vmem_engine.py:1200",
+        "launches": pf_launches[1],
+        "max_abs_err": max(v["err"] for v in k2.values()),
+        "ms": k2[f"{W}x{H}"]["ms"], "plain_ms": k2[f"{W}x{H}"]["plain_ms"],
+        "plain_on": "host CPU", "shape": f"B=1 F=1 {W}x{H}",
+        "by_geometry": k2})
+    for kern in kernels:
+        if kern["launches"] < 1:
+            raise AssertionError(f"{kern['name']} {kern.get('geometry')}: "
+                                 f"its path launched it no time")
+    log(f"[total] {time.perf_counter() - t_start:.1f} s")
+    log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

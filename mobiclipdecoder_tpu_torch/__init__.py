@@ -1,12 +1,17 @@
 """mobiclipdecoder_tpu_torch: the Mobiclip decoder's whole-GOP decode path
 ported to PyTorch, with its executor as a hand-written CUDA kernel for
-NVIDIA Hopper (sm_90a).
+NVIDIA Hopper (sm_90a), at DS 256x192, 3DS 400x240 and Wii 640x480.
 
 The JAX package ``mobiclipdecoder_tpu`` is the reference this port is held
 against; the port imports its JAX-free modules (oracle, planner, native
-scanner, synthesizer, tables) and nothing that needs JAX.
+scanner, synthesizer, tables, containers, host audio decoders, writers)
+and nothing that needs JAX.
 
 Layers, from the entry point down:
+  __main__.py          python -m mobiclipdecoder_tpu_torch
+                       {decode,info,play,batch}
+  runtime/transcode.py the shared transcoder with the port's decoders
+  parallel/distributed.py  corpus worker (GOP shards, lockstep batches)
   ops/vmem_engine.py   VmemBatchDecoder / VmemVideoDecoder (host scan,
                        dispatch, download)
   ops/packing.py       numpy packing of scanned op streams into one blob

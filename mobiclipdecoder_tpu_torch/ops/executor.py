@@ -3,7 +3,11 @@
 ``run_gop`` executes a packed GOP: for CUDA tensors it launches the
 hand-written kernel on the current stream (building it with nvcc at first
 use) or raises; for CPU tensors it runs the plain PyTorch version,
-ops/executor_ref.py.  ``launches`` counts kernel launches.
+ops/executor_ref.py.  It serves every stride the codec has (256, 512 and
+1024: DS, 3DS and Wii frame widths).  ``launches`` counts the kernel's
+whole-GOP launches (F > 1, the JAX package's ``_build_gop_executor``);
+``frame_launches`` counts its single-frame launches (F == 1, the form
+that ``_build_executor`` computes there).
 
 ``run_gop_host`` runs the kernel's per-op code (csrc/exec_ops.cuh) built
 for the host with g++; it exists for the CPU tests only.
@@ -21,6 +25,10 @@ from .executor_ref import run_gop_ref
 from .packing import CHUNK, _geom
 
 launches = 0
+frame_launches = 0
+
+# stride policy of the codec (MobiclipDecoder.cs:50-52)
+STRIDES = (256, 512, 1024)
 
 _lib = None
 _host_lib = None
@@ -52,8 +60,9 @@ def _load_host():
 
 
 def _check(ops, resid, ring, F: int, H: int, S: int) -> None:
-    if S > 256:
-        raise NotImplementedError(f"stride {S} > 256 is not ported")
+    if S not in STRIDES:
+        raise ValueError(f"stride {S} is not one of the codec's strides "
+                         f"{STRIDES}")
     _hh, G8, SP = _geom(H, S)
     B, nct = ops.shape[:2]
     want = {"ops": (ops, torch.int32, (B, nct, CHUNK, 4)),
@@ -76,7 +85,7 @@ def run_gop(ops: torch.Tensor, resid: torch.Tensor, ring: torch.Tensor,
     """Execute a packed GOP.  ops (B, nct, CHUNK, 4) int32, resid
     (B, nct, CHUNK, 64) int32 spatial residual rows, ring (B, 6, R, SP)
     uint8 (updated in place).  Returns frames (F, B, R, SP) uint8."""
-    global launches
+    global launches, frame_launches
     _check(ops, resid, ring, F, H, S)
     B, nct = ops.shape[:2]
     # every frame's plane is zeroed by the executor at its first chunk
@@ -96,7 +105,10 @@ def run_gop(ops: torch.Tensor, resid: torch.Tensor, ring: torch.Tensor,
             frames.data_ptr(), tabs.data_ptr(), B, nct, F, H, S, stream)
     if rc != 0:
         raise RuntimeError(f"gop executor launch failed: CUDA error {rc}")
-    launches += 1
+    if F == 1:
+        frame_launches += 1
+    else:
+        launches += 1
     return frames
 
 

@@ -10,8 +10,7 @@ it, ``ops/residuals.py`` runs the IDCT pre-pass, and ONE executor launch
 6-slot reference ring, which stays on the device across GOPs.
 
 Every decode, single frames included, goes through this fused path (a
-single frame is a GOP of one).  Strides above 256 (400x240 and 640x480)
-are not ported and raise ``NotImplementedError``.
+single frame is a GOP of one).
 """
 from __future__ import annotations
 
@@ -64,23 +63,23 @@ class VmemBatchDecoder:
 
     ``device`` is required: the decoder runs where it is told and never
     moves itself.  On a CUDA device the executor is the CUDA kernel; on
-    the CPU it is the plain PyTorch version."""
+    the CPU it is the plain PyTorch version.  A CUDA device that is not
+    there raises."""
 
     def __init__(self, width: int, height: int, version, batch: int = 1,
                  *, device, native: bool | None = None, crop: bool = False):
         # crop=True slices results to frame width ON DEVICE before the
         # download: (F, B, HH, W) with the UV halves repacked as U|V
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("device 'cuda' was asked for, but "
+                               "torch.cuda.is_available() is false")
         self.B = batch
         self.crop = bool(crop)
         self.width, self.height = width, height
-        self.device = torch.device(device)
         self.planners = [PlanningDecoder(width, height, version)
                          for _ in range(batch)]
         self.stride = self.planners[0].stride
-        if self.stride > 256:
-            raise NotImplementedError(
-                f"{width}x{height} needs stride {self.stride}; only strides "
-                f"<= 256 are ported")
         self.natives = None
         if native is not False:
             try:

@@ -84,3 +84,45 @@ def test_cuda_decoder_matches_cpu_decoder(cuda):
     for g, e in zip(got, exp):
         np.testing.assert_array_equal(g, e)
     np.testing.assert_array_equal(gpu.ring.cpu().numpy(), cpu.ring.numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nframes", [1, 4])
+@pytest.mark.parametrize("size", [(272, 32), (528, 32), (400, 240)])
+def test_cuda_kernel_matches_plain_at_wide_strides(cuda, size, nframes):
+    """Strides 512 and 1024 (and the real 400x240), as a GOP and as the
+    single-frame launch: kernel == plain executor, frames and ring."""
+    w, h = size
+    v = MobiclipVersion.MOFLEX_3DS
+    synths = [StreamSynthesizer(w, h, v, seed=s) for s in (41, 42)]
+    planners = [PlanningDecoder(w, h, v) for _ in synths]
+    plans = []
+    for f in range(nframes):
+        row = []
+        for syn, p in zip(synths, planners):
+            p.data = syn.iframe(0x18) if f == 0 else syn.pframe()
+            p.offset = 0
+            p.decode_frame()
+            row.append(p.unified_plan())
+        plans.append(row)
+    stride = planners[0].stride
+    ops, coefs, sizes = packing._pack_gop_chunks(plans, 2)
+    B, nct = ops.shape[:2]
+    resid = _residuals(torch.from_numpy(coefs).view(-1, 64),
+                       torch.from_numpy(sizes).view(-1)).view(B, nct, 256,
+                                                               64)
+    ring0 = np.random.default_rng(1).integers(
+        0, 256, state.ring_shape(B, h, stride)).astype(np.uint8)
+    ring_c = torch.from_numpy(ring0).to(cuda)
+    counts = (executor.launches, executor.frame_launches)
+    frames_c = executor.run_gop(torch.from_numpy(ops).to(cuda),
+                                resid.to(cuda), ring_c, nframes, h, stride)
+    torch.cuda.synchronize()
+    assert (executor.launches - counts[0],
+            executor.frame_launches - counts[1]) == (
+                (0, 1) if nframes == 1 else (1, 0))
+    ring_p = torch.from_numpy(ring0.copy())
+    frames_p = executor.run_gop(torch.from_numpy(ops), resid, ring_p,
+                                nframes, h, stride)
+    np.testing.assert_array_equal(frames_c.cpu().numpy(), frames_p.numpy())
+    np.testing.assert_array_equal(ring_c.cpu().numpy(), ring_p.numpy())

@@ -195,12 +195,19 @@ def test_dense_fallback_for_coefficients_beyond_int16():
     np.testing.assert_array_equal(yuv, _oracle(DS, [pkt]))
 
 
-def test_unported_geometry_and_missing_device_raise():
-    with pytest.raises(NotImplementedError):
-        VmemBatchDecoder(400, 240, MobiclipVersion.MOFLEX_3DS,
-                         device="cpu")
+def test_unported_geometry_and_missing_device_raise(monkeypatch):
+    """Every geometry of the codec is ported (400x240 and 640x480 build
+    a decoder at strides 512 and 1024); the device is explicit, and a
+    CUDA device that is not there raises instead of falling back."""
+    import torch
+    for (w, h), stride in (((400, 240), 512), ((640, 480), 1024)):
+        assert VmemBatchDecoder(w, h, MobiclipVersion.MOFLEX_3DS,
+                                device="cpu").stride == stride
     with pytest.raises(TypeError):
         VmemBatchDecoder(W, H, DS)                      # device is explicit
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        VmemBatchDecoder(W, H, DS, device="cuda")
 
 
 def test_port_never_imports_jax():
@@ -235,14 +242,18 @@ def test_port_never_imports_jax():
 
 
 def test_importing_the_port_leaves_jax_unimported():
-    """In a fresh interpreter, the port's modules and everything
-    chip_smoke.py imports load neither jax nor the JAX package."""
+    """In a fresh interpreter, the port's modules (its transcoder, corpus
+    worker and CLI included) and everything chip_smoke.py imports load
+    neither jax nor the JAX package."""
     import subprocess
     import sys
     code = (
         "import sys; pre = set(sys.modules); sys.path.insert(0, '.');"
         "import chip_smoke, mobiclipdecoder_tpu_torch.ops.vmem_engine;"
         "import mobiclipdecoder_tpu_torch.ops.executor;"
+        "import mobiclipdecoder_tpu_torch.runtime.transcode;"
+        "import mobiclipdecoder_tpu_torch.parallel.distributed;"
+        "import mobiclipdecoder_tpu_torch.__main__;"
         "from mobiclipdecoder_tpu_torch.shared.testing.synth import "
         "StreamSynthesizer;"
         "from mobiclipdecoder_tpu_torch.shared.models.oracle_video import "

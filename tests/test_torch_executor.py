@@ -29,10 +29,10 @@ W, H, S = 64, 48, 256
 B, F = 2, 4
 
 
-def _synth_plans(version, seeds, nframes=F, start=0):
+def _synth_plans(version, seeds, nframes=F, start=0, size=(W, H)):
     """Unified plans of synthesized streams: plans[f][b]."""
-    synths = [StreamSynthesizer(W, H, version, seed=s) for s in seeds]
-    planners = [PlanningDecoder(W, H, version) for _ in seeds]
+    synths = [StreamSynthesizer(*size, version, seed=s) for s in seeds]
+    planners = [PlanningDecoder(*size, version) for _ in seeds]
     plans = []
     for f in range(start + nframes):
         row = []
@@ -270,14 +270,24 @@ def test_gop_continues_from_ring_carried_over_from_jax():
     np.testing.assert_array_equal(pring2, jring2)
 
 
-@pytest.mark.parametrize("source", ["synth_ds", "synth_moflex", "hand"])
+# stride 512 (3DS 400x240) and 1024 (Wii 640x480) at a height of 32
+WIDE = {"synth_s512": (272, 32, 512), "synth_s1024": (528, 32, 1024)}
+
+
+@pytest.mark.parametrize("source", ["synth_ds", "synth_moflex", "hand",
+                                    *WIDE])
 def test_host_build_of_kernel_matches_plain(source):
     """csrc/exec_ops.cuh built for the host with g++ (the kernel's own
-    per-op code, thread loop on the host) equals the plain executor."""
+    per-op code, thread loop on the host) equals the plain executor, at
+    every stride."""
     if shutil.which("g++") is None:
         pytest.skip("g++ is not installed")
+    h, s = H, S
     if source == "hand":
         plans = _hand_plans(11)
+    elif source in WIDE:
+        w, h, s = WIDE[source]
+        plans = _synth_plans(MobiclipVersion.MOFLEX_3DS, (5, 6), size=(w, h))
     else:
         v = (MobiclipVersion.MODS_DS if source == "synth_ds"
              else MobiclipVersion.MOFLEX_3DS)
@@ -285,11 +295,11 @@ def test_host_build_of_kernel_matches_plain(source):
     ops, coefs, sizes = packing._pack_gop_chunks(plans, B)
     resid = _resid(coefs, sizes)
     ring0 = np.random.default_rng(2).integers(
-        0, 256, state.ring_shape(B, H, S)).astype(np.uint8)
+        0, 256, state.ring_shape(B, h, s)).astype(np.uint8)
     ring_t = torch.from_numpy(ring0.copy())
-    frames = executor.run_gop(torch.from_numpy(ops), resid, ring_t, F, H, S)
+    frames = executor.run_gop(torch.from_numpy(ops), resid, ring_t, F, h, s)
     ring_h = ring0.copy()
-    frames_h = executor.run_gop_host(ops, resid.numpy(), ring_h, F, H, S)
+    frames_h = executor.run_gop_host(ops, resid.numpy(), ring_h, F, h, s)
     np.testing.assert_array_equal(frames_h, frames.numpy())
     np.testing.assert_array_equal(ring_h, ring_t.numpy())
 
@@ -304,9 +314,28 @@ def test_wrapper_checks_inputs_and_never_falls_back():
         executor.run_gop(ops, resid[:, :8].contiguous(), ring, F, H, S)
     with pytest.raises(ValueError):
         executor.run_gop(ops, resid, ring.to(torch.int32), F, H, S)
-    with pytest.raises(NotImplementedError):
-        executor.run_gop(ops, resid, ring, F, 240, 512)
+    with pytest.raises(ValueError, match="stride 384"):
+        executor.run_gop(ops, resid, ring, F, H, 384)
     # a tensor on another device never takes the plain path silently
     meta = [t.to("meta") for t in (ops, resid, ring)]
     with pytest.raises(ValueError):
         executor.run_gop(*meta, F, H, S)
+
+
+def test_failed_kernel_build_raises(monkeypatch, tmp_path):
+    """A kernel that cannot be built raises from the wrapper's loader; no
+    path falls back to the plain executor for a CUDA tensor."""
+    from mobiclipdecoder_tpu_torch.utils import build
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+    monkeypatch.setattr(build, "BUILD", tmp_path / "build")
+    monkeypatch.setattr(build, "find_nvcc", no_nvcc)
+    monkeypatch.setattr(executor, "_lib", None)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        executor._load()
+    monkeypatch.setattr(build, "find_nvcc", lambda: "/bin/false")
+    with pytest.raises(RuntimeError, match="failed building"):
+        executor._load()
+    assert executor._lib is None and not list(tmp_path.rglob("*.so"))
