@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--kernel-only]
 
 Builds the executor kernel from mobiclipdecoder_tpu_torch/csrc with nvcc,
 holds it against its plain PyTorch version, drives the main path (the
@@ -22,20 +22,28 @@ and the user's entry points:
                streams per launch: every shard equals the oracle worker's.
 
 Every phase raises on a mismatch.  Before each run of a user path the
-kernel's launch counters are set to 0, and they are read after it.
+kernel's launch counters are set to 0, and they are read after it; they
+also show which form of the kernel ran (the working plane in shared
+memory at 256x192 and 400x240, in global memory at 640x480).
+``--kernel-only`` stops after the build (whose ptxas report it prints) and
+the kernel-vs-plain checks at every geometry, as a GOP and at F=1, and
+prints no result line.
 
 Prints one line per phase with its seconds, then a JSON line describing
 each kernel, the card's name and power limit, and last a JSON line
 {"ok": true, "device": {...}}.  Needs a CUDA device; without one it exits
-non-zero and prints no result.  Imports nothing of JAX: the codec modules
-it shares with the JAX package come through mobiclipdecoder_tpu_torch.shared.
+non-zero and prints no result.  Imports nothing of JAX and nothing of the
+JAX package: the codec's host modules are the port's own copies.
 
 Besides the checks it measures, on the same card in the same run: the
 executor's time at B = 8, 32, 128 and 256 streams, the time of each stage
 of one GOP's dispatch, the plain executor on the card against the kernel
 at the Moflex shape, the sustained frames/s of decode_gops over three
 windows of SUSTAIN_GOPS GOPs, the executor at each geometry, and the
-frames/s of the transcoder and of the corpus worker.
+frames/s of the transcoder and of the corpus worker.  For each
+geometry it prints the ops per stream per GOP (the length of the serial
+chain), the kernel's ns per op, its plane form and shared memory, and
+bound_ms: the least time the card could take for the same work.
 """
 from __future__ import annotations
 
@@ -61,6 +69,11 @@ SWEEP_B = (8, 32, 128, 256)
 WIDE = ((400, 240), (640, 480))     # strides 512 and 1024, Moflex profile
 TRANSCODE_FRAMES = 20               # crosses one CHUNK_FRAMES (16) seam
 BATCH_FILES, BATCH_GOP = 8, 5       # [batch]: 8 files x 2 GOPs of 5 frames
+# H100 SXM peaks from the on-chip-measurement guide's table: memory rate,
+# and the 32-bit rate outside the tensor cores (the table gives no int32
+# rate; the executor's arithmetic is 32-bit integer)
+HBM_BYTES_PER_S = 3.35e12
+OPS_PER_S = 67e12
 
 
 def log(msg: str) -> None:
@@ -86,6 +99,8 @@ def zero_counts() -> None:
     from mobiclipdecoder_tpu_torch.ops import executor
     executor.launches = 0
     executor.frame_launches = 0
+    executor.smem_plane_launches = 0
+    executor.global_plane_launches = 0
 
 
 def read_counts() -> tuple[int, int]:
@@ -94,10 +109,114 @@ def read_counts() -> tuple[int, int]:
     return executor.launches, executor.frame_launches
 
 
+def read_plane_counts() -> tuple[int, int]:
+    """(launches with the plane in shared memory, launches with it in
+    global memory) since zero_counts."""
+    from mobiclipdecoder_tpu_torch.ops import executor
+    return executor.smem_plane_launches, executor.global_plane_launches
+
+
+def check_plane_form(label: str, h: int, S: int) -> tuple[int, int]:
+    """The launches since zero_counts all took the plane form of this
+    geometry, and at least one did."""
+    from mobiclipdecoder_tpu_torch.ops import executor
+    sm, gl = read_plane_counts()
+    ok = (sm > 0 and gl == 0) if executor.plane_in_smem(h, S) else (
+        gl > 0 and sm == 0)
+    if not ok:
+        raise AssertionError(f"{label}: plane-form launches smem {sm}, "
+                             f"global {gl}")
+    return sm, gl
+
+
+def _popc(x):
+    return sum((x >> k) & 1 for k in range(8))
+
+
+def gop_work(ops, F: int, h: int, S: int) -> dict:
+    """What one executor launch on these op chunks (B, nct, CHUNK, 4) must
+    do.  ``ops_max``/``ops_mean``: op rows per stream (the serial chain).
+    ``bytes``: each input read once (the op rows in use, the coefficient
+    rows the ops reference, the ring slots read before this launch
+    writes them, the intra tables) and each output written once (the
+    frames, the ring slots written).  ``ops``: the pixels the ops write,
+    one operation each at least.  ``bound_ms`` is the larger of bytes over
+    the memory rate and ops over the 32-bit rate."""
+    from mobiclipdecoder_tpu_torch.ops.packing import CHUNK, _geom
+    ops = np.asarray(ops).astype(np.int64)
+    nb = ops.shape[0]
+    _hh, G8, SP = _geom(h, S)
+    plane = G8 * 8 * SP
+    fid = ops[:, :, 0, 1]
+    live = (fid >= 0) & (fid < F)
+    count = np.where(live, np.clip(ops[:, :, 0, 0], 0, CHUNK - 1), 0)
+    used = (np.arange(CHUNK) >= 1) & (np.arange(CHUNK) <= count[..., None])
+    w0 = ops[..., 0]
+    typ, sl = w0 & 3, (w0 >> 2) & 7
+    bw, bh = (w0 >> 16) & 0x1F, (w0 >> 21) & 0x1F
+    one = np.ones_like(w0)
+    nrows = np.select(
+        [typ == 1, (typ == 2) & (sl == 4), (typ == 2) & (sl == 5), typ == 2,
+         (typ == 3) & ((sl == 5) | (sl == 6)), (typ == 3) & (sl == 7),
+         typ == 3],
+        [_popc((w0 >> 3) & 0x3F), _popc((w0 >> 5) & 0xF),
+         _popc((w0 >> 5) & 0x3), one, _popc((w0 >> 21) & 0xF),
+         _popc((w0 >> 10) & 0x3), (w0 >> 10) & 1], 0)
+    side = np.where(sl <= 4, 1 << np.minimum(sl, 4), 0)
+    pixels = np.select(
+        [typ == 1, (typ == 2) & (sl == 4), (typ == 2) & (sl == 5), typ == 2,
+         (typ == 3) & (sl == 5), (typ == 3) & (sl == 7), typ == 3],
+        [bw * bh + 2 * (bw >> 1) * (bh >> 1), 256 * one, 128 * one,
+         side * side, 64 * one, 128 * one,
+         np.where(sl == 6, 256, side * side)], 0)
+    # ring slots read as inputs: frame f's reference r is frame f - r (its
+    # own slot, r = 0, holds frame f - 6), made before this launch if < 0
+    f = np.broadcast_to(fid[..., None], w0.shape)
+    ref = (w0 >> 13) & 7
+    src = np.where(ref >= 1, f - ref, f - 6)
+    mc_in = used & (typ == 1) & (src < 0)
+    slots_in = sum(len(set(((5 - f[b] % 6 + ref[b]) % 6)[mc_in[b]].tolist()))
+                   for b in range(nb))
+    nbytes = int((count + live).sum() * 16 + (nrows * used).sum() * 256
+                 + slots_in * plane + (20 * 256 * 4 if (used & (typ == 3)).any()
+                                       else 0)
+                 + F * nb * plane + min(F, 6) * nb * plane)
+    nops = int((pixels * used).sum())
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / OPS_PER_S
+    per = count.sum(axis=1)
+    return {"ops_max": int(per.max()), "ops_mean": float(per.mean()),
+            "bytes": nbytes, "ops": nops,
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def kernel_facts(ms: float, work: dict, h: int, S: int) -> dict:
+    """The kernel's plane form, shared memory and ns per op of the serial
+    chain (the longest stream's), beside its bound."""
+    from mobiclipdecoder_tpu_torch.ops import executor
+    sm = executor.plane_in_smem(h, S)
+    return {"ms": ms, "plane": "shared" if sm else "global",
+            "smem_bytes": executor.smem_bytes(h, S, sm),
+            "ops_per_stream": work["ops_max"],
+            "ns_per_op": ms * 1e6 / max(work["ops_max"], 1),
+            "bound_ms": work["bound_ms"], "bound_by": work["bound_by"],
+            "bytes": work["bytes"]}
+
+
+def facts_line(label: str, shape: str, k: dict) -> str:
+    return (f"{label} {shape}: plane in {k['plane']} memory, "
+            f"{k['smem_bytes']} B shared memory per block; "
+            f"{k['ops_per_stream']} ops per stream (longest); kernel "
+            f"{k['ms']:.3f} ms = {k['ns_per_op']:.1f} ns/op; bound "
+            f"{k['bound_ms'] * 1e3:.2f} us ({k['bound_by']}: "
+            f"{k['bytes'] / 1e6:.2f} MB), kernel/bound "
+            f"{k['ms'] / k['bound_ms']:.0f}x")
+
+
 def synth_gops(version, seeds, ngops, nframes, size=(W, H)):
     """gops[g][f][b]: packet of frame f of stream b in GOP g (each GOP
     starts with an I-frame)."""
-    from mobiclipdecoder_tpu_torch.shared.testing.synth import StreamSynthesizer
+    from mobiclipdecoder_tpu_torch.testing.synth import StreamSynthesizer
     synths = [StreamSynthesizer(*size, version, seed=s) for s in seeds]
     return [[[s.iframe(0x18) if f == 0 else s.pframe() for s in synths]
              for f in range(nframes)] for _ in range(ngops)]
@@ -105,7 +224,7 @@ def synth_gops(version, seeds, ngops, nframes, size=(W, H)):
 
 def oracle_frames(version, packets, size=(W, H)):
     """(len(packets), HH, S) uint8 from the sequential oracle."""
-    from mobiclipdecoder_tpu_torch.shared.models.oracle_video import OracleDecoder
+    from mobiclipdecoder_tpu_torch.models.oracle_video import OracleDecoder
     o = OracleDecoder(*size, version)
     S = o.stride
     out = []
@@ -121,7 +240,7 @@ def oracle_frames(version, packets, size=(W, H)):
 def packed_gop(version, gop, size=(W, H)):
     """Native scan of one GOP -> (ops, coefs, sizes) host arrays, the
     executor's inputs before the residual pre-pass."""
-    from mobiclipdecoder_tpu_torch.shared.utils.native import NativePlanner
+    from mobiclipdecoder_tpu_torch.utils.native import NativePlanner
     from mobiclipdecoder_tpu_torch.ops.packing import (_gop_part,
                                                        _part_dense_arrays)
     nb = len(gop[0])
@@ -236,7 +355,8 @@ def replicate(inputs, nb, reps=20) -> float:
 def fixed_cost_ms(size, nf=16, reps=10) -> float:
     """Kernel ms per frame of a B=1 GOP whose frames hold no op: the
     executor's fixed cost per frame (zeroing the working plane and
-    committing it to the ring, byte by byte in one block)."""
+    writing it to the frames and the ring, 16 bytes per store, in one
+    block)."""
     from mobiclipdecoder_tpu_torch import state
     from mobiclipdecoder_tpu_torch.ops.packing import CHUNK
     h, S = size[1], width_stride(size[0])
@@ -247,6 +367,51 @@ def fixed_cost_ms(size, nf=16, reps=10) -> float:
     ring = torch.zeros(state.ring_shape(1, h, S), dtype=torch.uint8)
     return time_kernel((ops.cuda(), resid.cuda(), ring.cuda(), nf, h, S),
                        reps) / nf
+
+
+# op forms of the executor, by the first op word w0: type w0 & 3 (1 MC,
+# 2 residual, 3 intra) and form (w0 >> 2) & 7 (intra: < 5 one block,
+# 5 and 6 a luma quad batch, 7 the chroma U+V pair)
+OP_FORMS = {
+    "MC": lambda t, f: t == 1,
+    "residual": lambda t, f: t == 2,
+    "intra block": lambda t, f: (t == 3) & (f < 5),
+    "intra quad": lambda t, f: (t == 3) & ((f == 5) | (f == 6)),
+    "intra pair": lambda t, f: (t == 3) & (f == 7),
+}
+
+
+def op_form_times(inputs) -> dict:
+    """Where the executor's time goes by op form: the main-path GOP's
+    chunks cut down to the ops of one form (each chunk keeps its own, in
+    order; the frames are not checked), timed from a zero ring, as ms and
+    ns per op of the longest stream.  "no-op" keeps every op row with its
+    type set to 0: what each op costs beyond its work (loop, barrier,
+    copies of nothing)."""
+    from mobiclipdecoder_tpu_torch.ops.packing import CHUNK
+    ops_c, res_c, ring_c, nf, h, S = inputs
+    ops = ops_c.cpu().numpy()
+    count = np.clip(ops[:, :, 0, 0], 0, CHUNK - 1)
+    live = np.arange(1, CHUNK) <= count[..., None]
+    w0 = ops[:, :, 1:, 0]
+    out = {}
+    for name, keep in [("no-op", None), *OP_FORMS.items()]:
+        sub = ops.copy()
+        if keep is None:
+            sub[:, :, 1:, 0] = 0
+        else:
+            sel = live & keep(w0 & 3, (w0 >> 2) & 7)
+            for b, c in zip(*np.nonzero(count > 0)):
+                rows = ops[b, c, 1:][sel[b, c]]
+                sub[b, c, 1:] = 0
+                sub[b, c, 1:1 + len(rows)] = rows
+                sub[b, c, 0, 0] = len(rows)
+        n = int(np.clip(sub[:, :, 0, 0], 0, CHUNK - 1).sum(axis=1).max())
+        ms = time_kernel((torch.from_numpy(sub).cuda(), res_c,
+                          torch.zeros_like(ring_c), nf, h, S), reps=10)
+        out[name] = {"ms": ms, "ops_per_stream": n,
+                     "ns_per_op": ms * 1e6 / max(n, 1)}
+    return out
 
 
 def b_sweep(inputs) -> dict:
@@ -338,7 +503,7 @@ def surface_streams(version, size):
     """The format-surface streams of the JAX package's on-chip verify
     (tools/verify_onchip.py): default, VLC table 1 with a dQP ladder, the
     Moflex QP-clamp edges, and big escape levels (the dense upload)."""
-    from mobiclipdecoder_tpu_torch.shared.testing.synth import StreamSynthesizer
+    from mobiclipdecoder_tpu_torch.testing.synth import StreamSynthesizer
     s1 = StreamSynthesizer(*size, version, seed=1234)
     s2 = StreamSynthesizer(*size, version, seed=77)
     s3 = StreamSynthesizer(*size, version, seed=78)
@@ -379,7 +544,7 @@ def ima_packets(nframes, channels, key_at):
     """Per-frame IMA ADPCM audio packets of a MODS file: each channel's
     stream restarts at every keyframe, the first packet of a segment
     carrying its 4-byte state header."""
-    from mobiclipdecoder_tpu_torch.shared.models.audio_ima import encode_ima
+    from mobiclipdecoder_tpu_torch.models.audio_ima import encode_ima
     segments = sorted(key_at) + [nframes]
     per_frame = [[] for _ in range(nframes)]
     for s in range(len(segments) - 1):
@@ -398,9 +563,9 @@ def ima_packets(nframes, channels, key_at):
 
 def mods_container(nframes, seed, key_at) -> bytes:
     """DS MODS 256x192 with 2-channel IMA audio, keyframes at `key_at`."""
-    from mobiclipdecoder_tpu_torch.shared.containers.mods import ModsMuxer
-    from mobiclipdecoder_tpu_torch.shared.models.oracle_video import MobiclipVersion
-    from mobiclipdecoder_tpu_torch.shared.testing.synth import StreamSynthesizer
+    from mobiclipdecoder_tpu_torch.containers.mods import ModsMuxer
+    from mobiclipdecoder_tpu_torch.models.oracle_video import MobiclipVersion
+    from mobiclipdecoder_tpu_torch.testing.synth import StreamSynthesizer
     synth = StreamSynthesizer(W, H, MobiclipVersion.MODS_DS, seed=seed)
     mux = ModsMuxer(W, H, fps=24.0, audio_codec=3, nb_channel=2,
                     frequency=16384)
@@ -417,11 +582,11 @@ def mods_container(nframes, seed, key_at) -> bytes:
 
 def moflex_container(nframes, seed, size) -> bytes:
     """Moflex with one video stream and 2-channel IMA audio."""
-    from mobiclipdecoder_tpu_torch.shared.containers.moflex import (
+    from mobiclipdecoder_tpu_torch.containers.moflex import (
         AudioStream, MoflexMuxer, VideoStream)
-    from mobiclipdecoder_tpu_torch.shared.models.audio_ima import encode_ima
-    from mobiclipdecoder_tpu_torch.shared.models.oracle_video import MobiclipVersion
-    from mobiclipdecoder_tpu_torch.shared.testing.synth import StreamSynthesizer
+    from mobiclipdecoder_tpu_torch.models.audio_ima import encode_ima
+    from mobiclipdecoder_tpu_torch.models.oracle_video import MobiclipVersion
+    from mobiclipdecoder_tpu_torch.testing.synth import StreamSynthesizer
     synth = StreamSynthesizer(*size, MobiclipVersion.MOFLEX_3DS, seed=seed)
     mux = MoflexMuxer([
         VideoStream(stream_index=0, codec_id=0, fps_rate=24, fps_scale=1,
@@ -446,9 +611,9 @@ def moflex_container(nframes, seed, size) -> bytes:
 
 
 def moc5_container(nframes, seed, size) -> bytes:
-    from mobiclipdecoder_tpu_torch.shared.containers.moc5 import Moc5Muxer
-    from mobiclipdecoder_tpu_torch.shared.models.oracle_video import MobiclipVersion
-    from mobiclipdecoder_tpu_torch.shared.testing.synth import StreamSynthesizer
+    from mobiclipdecoder_tpu_torch.containers.moc5 import Moc5Muxer
+    from mobiclipdecoder_tpu_torch.models.oracle_video import MobiclipVersion
+    from mobiclipdecoder_tpu_torch.testing.synth import StreamSynthesizer
     synth = StreamSynthesizer(*size, MobiclipVersion.MOFLEX_3DS, seed=seed)
     mux = Moc5Muxer(*size, fps=30.0)
     for i in range(nframes):
@@ -468,9 +633,12 @@ def cli(argv) -> dict:
     return json.loads(buf.getvalue().strip().splitlines()[-1])
 
 
-def transcode_case(tmp: Path, name: str, blob: bytes, suffix: str) -> dict:
-    """Decode one container with the CLI, engine cuda (the default) and
-    oracle; every output file's bytes must be equal."""
+def transcode_case(tmp: Path, name: str, blob: bytes, suffix: str,
+                   size) -> dict:
+    """Decode one container of frame size ``size`` with the CLI, engine
+    cuda (the default) and oracle; every output file's bytes must be
+    equal."""
+    w, h = size
     src = tmp / f"{name}{suffix}"
     src.write_bytes(blob)
     zero_counts()
@@ -478,6 +646,7 @@ def transcode_case(tmp: Path, name: str, blob: bytes, suffix: str) -> dict:
     launches = read_counts()
     if sum(launches) < 1:
         raise AssertionError(f"{name}: the cuda engine launched no kernel")
+    planes = check_plane_form(name, h, width_stride(w))
     so = cli(["decode", str(src), str(tmp / f"{name}_oracle"), "--engine",
               "oracle"])
     outs = {}
@@ -494,15 +663,17 @@ def transcode_case(tmp: Path, name: str, blob: bytes, suffix: str) -> dict:
     if st["frames"] != so["frames"] or st["frames"] != TRANSCODE_FRAMES:
         raise AssertionError(f"{name}: {st['frames']} vs {so['frames']}")
     return {"stats": st, "oracle": so, "launches": launches,
+            "planes": planes,
             "files": {k: len(v) for k, v in outs["cuda"].items()}}
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    kernel_only = "--kernel-only" in (sys.argv[1:] if argv is None else argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "false); there is no CPU path", file=sys.stderr)
         return 1
-    from mobiclipdecoder_tpu_torch.shared.models.oracle_video import MobiclipVersion
+    from mobiclipdecoder_tpu_torch.models.oracle_video import MobiclipVersion
     from mobiclipdecoder_tpu_torch.ops import executor
     from mobiclipdecoder_tpu_torch.ops.vmem_engine import (VmemBatchDecoder,
                                                            VmemVideoDecoder)
@@ -525,6 +696,9 @@ def main() -> int:
         + (f"nvcc {built:.2f} s" if built is not None
            else "already built in csrc/build")
         + f", load {time.perf_counter() - t0:.2f} s")
+    for line in build.build_logs.get("gop_executor", "").splitlines():
+        if line.strip():
+            log(f"[build] {line.strip()}")
 
     # workload: 8 DS streams x 2 GOPs; streams 0-1 of GOP 1 feed phase 3
     ds = MobiclipVersion.MODS_DS
@@ -541,6 +715,19 @@ def main() -> int:
                                         "Moflex 256x192", 2)
         err, k_first_ms, plain_ms, main_inputs = kernel_vs_plain(
             ds, gops[0], "DS 256x192 main-path shape", 3)
+    if kernel_only:
+        with phase("kernel_only"):
+            for size in WIDE:
+                kernel_vs_plain(mf, synth_gops(mf, [7], 1, 4, size)[0],
+                                f"Moflex {size[0]}x{size[1]}", 4, size)
+            for size, version in (((W, H), ds), (WIDE[0], mf),
+                                  (WIDE[1], mf)):
+                kernel_vs_plain(version, synth_gops(version, [9], 1, 1,
+                                                    size)[0],
+                                f"F=1 {size[0]}x{size[1]}", 6, size)
+        log(f"[total] {time.perf_counter() - t_start:.1f} s; --kernel-only: "
+            f"no result line")
+        return 0
 
     # 4. main path: decode_gops over 2 GOPs, ring carried across
     with phase("main_path"):
@@ -552,6 +739,7 @@ def main() -> int:
         launches, _f1 = read_counts()
         if launches < 1:
             raise AssertionError("main path launched no executor kernel")
+        main_planes = check_plane_form("main path", H, 256)
         for g, out in enumerate(outs):
             if out.shape != (F, B, H + H // 2, 256) or out.dtype != np.uint8:
                 raise AssertionError(f"GOP {g}: shape {out.shape} {out.dtype}")
@@ -580,6 +768,7 @@ def main() -> int:
         yuv, offs, err_i = vd.decode_stream_chunk(pkts[:8])
         rest = [np.concatenate(vd.decode_frame(p)) for p in pkts[8:]]
         pf_launches = read_counts()
+        check_plane_form("per-frame path", H, 256)
         if err_i is not None or yuv.shape[0] != 8 or offs != [
                 len(p) for p in pkts[:8]]:
             raise AssertionError(f"decode_stream_chunk: err {err_i}, "
@@ -601,12 +790,13 @@ def main() -> int:
         k_ms = time_kernel(main_inputs)
         mf_k_ms = time_kernel(mf_inputs)
         mf_plain_ms = plain_on_card(mf_inputs)
-        # op rows per stream: the chunk headers' counts (at most 255 each)
-        rows = int(main_inputs[0][:, :, 0, 0].clamp(0, 255).sum()) // B
+        main_k = kernel_facts(k_ms, gop_work(main_inputs[0].cpu(), F, H,
+                                             256), H, 256)
         log(f"[timing] executor kernel {k_ms:.3f} ms/GOP (B={B}, F={F}, "
-            f"device-resident, CUDA events, mean of 20; {rows} op rows per "
-            f"stream, {k_ms * 1e3 / rows:.3f} us each) vs plain executor "
+            f"device-resident, CUDA events, mean of 20) vs plain executor "
             f"{plain_ms:.1f} ms/GOP on the host CPU (same inputs) | {smi}")
+        log("[executor] " + facts_line("256x192", f"B={B} F={F}", main_k)
+            + f" | {smi}")
         log(f"[timing] on the card, Moflex 256x192 B=1 F=8: kernel "
             f"{mf_k_ms:.3f} ms vs plain executor {mf_plain_ms:.1f} ms (CUDA "
             f"tensors, host clock + sync, frames equal) | {smi}")
@@ -615,6 +805,12 @@ def main() -> int:
             + ", ".join(f"B={nb} {ms:.3f} ms ({nb * F / ms * 1e3:.1f} "
                         f"frames/s)" for nb, ms in sweep.items())
             + f" | {smi}")
+        forms = op_form_times(main_inputs)
+        log("[op_forms] executor on the main-path GOP cut to one op form "
+            "(B=8, F=24, mean of 10): "
+            + ", ".join(f"{k} {v['ms']:.3f} ms for {v['ops_per_stream']} ops "
+                        f"per stream = {v['ns_per_op']:.1f} ns/op"
+                        for k, v in forms.items()) + f" | {smi}")
         stages = stage_breakdown(ds, gops[0])
         dev_ms = sum(stages[k] for k in ("unpack blob", "residuals",
                                          "executor", "download"))
@@ -653,9 +849,17 @@ def main() -> int:
             gop_in = (torch.from_numpy(ops).cuda(), res_c, g_in[2], F,
                       size[1], width_stride(size[0]))
             b8_ms = replicate(gop_in, B, reps=5)
+            g_sweep = {nb: replicate(gop_in, nb, reps=5) for nb in SWEEP_B}
+            S_w = width_stride(size[0])
+            g_k = kernel_facts(g_k_ms, gop_work(g_in[0].cpu(), 4, size[1],
+                                                S_w), size[1], S_w)
+            b8_k = kernel_facts(b8_ms, gop_work(np.tile(ops, (B, 1, 1, 1)),
+                                                F, size[1], S_w),
+                                size[1], S_w)
             geo[label] = {"err": g_err, "ms": g_k_ms, "plain_ms": g_plain_ms,
                           "b8_f24_ms": b8_ms, "chunks": nct_used,
-                          "bucket": nct}
+                          "bucket": nct, "facts": g_k, "b8_f24": b8_k,
+                          "b_sweep": g_sweep}
             log(f"[geometry] {label} stride {width_stride(size[0])}: kernel "
                 f"== plain (B=1 F=4: kernel {g_k_ms:.3f} ms, mean of 10, vs "
                 f"plain {g_plain_ms:.1f} ms on the host CPU); format "
@@ -666,6 +870,15 @@ def main() -> int:
                 f"ms/GOP at B={B}, F={F} (GOP replicated, mean of 5; "
                 f"{B * F / b8_ms * 1e3:.1f} frames/s); synth {t_syn:.1f} s "
                 f"| {smi}")
+            log("[executor] " + facts_line(label, f"B={B} F={F}", b8_k)
+                + f" | {smi}")
+            log("[executor] " + facts_line(label, "B=1 F=4", g_k)
+                + f" | {smi}")
+            log(f"[b_sweep] {label} kernel ms/GOP, the 24-frame GOP "
+                f"replicated to B streams: "
+                + ", ".join(f"B={nb} {ms:.3f} ms ({nb * F / ms * 1e3:.1f} "
+                            f"frames/s)" for nb, ms in g_sweep.items())
+                + f" | {smi}")
 
     # 8. the single-frame launch (K2's form) == plain at each geometry
     k2 = {}
@@ -677,8 +890,12 @@ def main() -> int:
                 frame = synth_gops(version, [9], 1, 1, size)[0]
             e1, _k, p1, in1 = kernel_vs_plain(version, frame,
                                               f"F=1 {label}", 6, size)
-            k2[label] = {"err": e1, "ms": time_kernel(in1), "plain_ms": p1,
-                         "fixed_ms_per_frame": fixed_cost_ms(size)}
+            S1 = width_stride(size[0])
+            k1_ms = time_kernel(in1)
+            k2[label] = {"err": e1, "ms": k1_ms, "plain_ms": p1,
+                         "fixed_ms_per_frame": fixed_cost_ms(size),
+                         "facts": kernel_facts(k1_ms, gop_work(
+                             in1[0].cpu(), 1, size[1], S1), size[1], S1)}
         log("[k2] single-frame launch (F=1, B=1, an I-frame) == plain "
             "executor at "
             + ", ".join(f"{k}: kernel {v['ms']:.3f} ms (mean of 20) vs plain "
@@ -688,6 +905,9 @@ def main() -> int:
             "zero the plane, commit it to the ring): "
             + ", ".join(f"{k} {v['fixed_ms_per_frame']:.4f} ms"
                         for k, v in k2.items()) + f" | {smi}")
+        for k, v in k2.items():
+            log("[executor] " + facts_line(k, "B=1 F=1", v["facts"])
+                + f" | {smi}")
 
     # 9. the CLI transcoder: cuda bytes == oracle bytes
     trans = {}
@@ -696,22 +916,24 @@ def main() -> int:
         t0 = time.perf_counter()
         cases = (
             ("mods_256x192", mods_container(TRANSCODE_FRAMES, 11, (0, 10)),
-             ".mods"),
+             ".mods", (W, H)),
             ("moflex_400x240", moflex_container(TRANSCODE_FRAMES, 12,
-                                                WIDE[0]), ".moflex"),
+                                                WIDE[0]), ".moflex",
+             WIDE[0]),
             ("moc5_640x480", moc5_container(TRANSCODE_FRAMES, 13, WIDE[1]),
-             ".moc5"))
+             ".moc5", WIDE[1]))
         log(f"[transcode] synthesized 3 containers x {TRANSCODE_FRAMES} "
             f"frames in {time.perf_counter() - t0:.1f} s")
-        for cname, blob, suffix in cases:
-            r = transcode_case(tmp, cname, blob, suffix)
+        for cname, blob, suffix, size in cases:
+            r = transcode_case(tmp, cname, blob, suffix, size)
             trans[cname] = r
             log(f"[transcode] {cname}: decode --engine cuda -> "
                 f"{r['files']} bytes, equal to --engine oracle; "
                 f"{r['stats']['frames']} frames at {r['stats']['fps']} "
                 f"frames/s (oracle {r['oracle']['fps']} frames/s); launches "
                 f"whole-GOP {r['launches'][0]}, single-frame "
-                f"{r['launches'][1]} | {smi}")
+                f"{r['launches'][1]}; plane in shared / global memory "
+                f"{r['planes'][0]} / {r['planes'][1]} | {smi}")
 
     # 10. the corpus worker: 8 streams per launch == oracle worker
     with phase("batch"), tempfile.TemporaryDirectory() as d:
@@ -727,6 +949,7 @@ def main() -> int:
         sc = run_worker(files, tmp / "cuda", engine="cuda", batch=B)
         t_cuda = time.perf_counter() - t0
         batch_launches = read_counts()
+        check_plane_form("batch", H, 256)
         t0 = time.perf_counter()
         so = run_worker(files, tmp / "oracle", engine="oracle")
         t_oracle = time.perf_counter() - t0
@@ -749,10 +972,18 @@ def main() -> int:
 
     src = "mobiclipdecoder_tpu_torch/csrc/gop_executor.cu"
     k1 = "mobiclipdecoder_tpu/ops/vmem_engine.py:1286"
+    def facts(k: dict) -> dict:
+        return {key: k[key] for key in ("bound_ms", "bound_by", "plane",
+                                        "smem_bytes", "ops_per_stream",
+                                        "ns_per_op")}
+
+    # no single PyTorch call computes the executor: library_ms is null
     kernels = [{
         "name": "gop_executor", "geometry": "256x192", "route": "cuda",
         "source": src, "replaces": k1, "launches": launches,
+        "plane_launches": main_planes,
         "max_abs_err": err, "ms": k_ms, "plain_ms": plain_ms,
+        **facts(main_k), "library_ms": None,
         "plain_on": "host CPU", "shape": f"B={B} F={F}",
         "on_card_moflex_b1_f8": {"ms": mf_k_ms, "plain_ms": mf_plain_ms}}]
     for (label, g), cname in zip(geo.items(),
@@ -761,17 +992,26 @@ def main() -> int:
             "name": "gop_executor", "geometry": label, "route": "cuda",
             "source": src, "replaces": k1,
             "launches": trans[cname]["launches"][0],
+            "plane_launches": trans[cname]["planes"],
             "max_abs_err": g["err"], "ms": g["ms"],
-            "plain_ms": g["plain_ms"], "plain_on": "host CPU",
-            "shape": "B=1 F=4", "b8_f24_ms": g["b8_f24_ms"]})
+            "plain_ms": g["plain_ms"], **facts(g["facts"]),
+            "library_ms": None, "plain_on": "host CPU", "shape": "B=1 F=4",
+            "b8_f24": {k: g["b8_f24"][k] for k in ("ms", "bound_ms",
+                                                    "ops_per_stream",
+                                                    "ns_per_op")},
+            "b_sweep_ms": {str(nb): ms for nb, ms in g["b_sweep"].items()}})
     kernels.append({
         "name": "gop_executor_f1", "route": "cuda", "source": src,
         "replaces": "mobiclipdecoder_tpu/ops/vmem_engine.py:1200",
         "launches": pf_launches[1],
         "max_abs_err": max(v["err"] for v in k2.values()),
         "ms": k2[f"{W}x{H}"]["ms"], "plain_ms": k2[f"{W}x{H}"]["plain_ms"],
+        **facts(k2[f"{W}x{H}"]["facts"]), "library_ms": None,
         "plain_on": "host CPU", "shape": f"B=1 F=1 {W}x{H}",
-        "by_geometry": k2})
+        "by_geometry": {k: {"err": v["err"], "ms": v["ms"],
+                            "plain_ms": v["plain_ms"],
+                            "fixed_ms_per_frame": v["fixed_ms_per_frame"],
+                            **facts(v["facts"])} for k, v in k2.items()}})
     for kern in kernels:
         if kern["launches"] < 1:
             raise AssertionError(f"{kern['name']} {kern.get('geometry')}: "

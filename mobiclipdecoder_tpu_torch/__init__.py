@@ -3,14 +3,17 @@ ported to PyTorch, with its executor as a hand-written CUDA kernel for
 NVIDIA Hopper (sm_90a), at DS 256x192, 3DS 400x240 and Wii 640x480.
 
 The JAX package ``mobiclipdecoder_tpu`` is the reference this port is held
-against; the port imports its JAX-free modules (oracle, planner, native
-scanner, synthesizer, tables, containers, host audio decoders, writers)
-and nothing that needs JAX.
+against; the port imports nothing of it.  The codec's host modules (oracle
+``models/oracle_video.py``, planner ``models/plan.py``, the ctypes bridge
+to the repository's C++ scanner ``utils/native.py``, synthesizer
+``testing/synth.py``, tables, containers, host audio decoders, writers,
+GOP sharding) are the port's own copies of the JAX package's files, at the
+same relative paths; ``tests/test_torch_copies.py`` holds them equal.
 
 Layers, from the entry point down:
   __main__.py          python -m mobiclipdecoder_tpu_torch
                        {decode,info,play,batch}
-  runtime/transcode.py the shared transcoder with the port's decoders
+  runtime/transcode.py the transcoder with the port's decoders
   parallel/distributed.py  corpus worker (GOP shards, lockstep batches)
   ops/vmem_engine.py   VmemBatchDecoder / VmemVideoDecoder (host scan,
                        dispatch, download)

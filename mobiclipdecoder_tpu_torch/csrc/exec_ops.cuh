@@ -5,24 +5,49 @@
 // Replaces the Pallas kernel body _make_kernel(..., fused=(B, nct, stage))
 // launched by _build_gop_executor in mobiclipdecoder_tpu/ops/vmem_engine.py.
 //
-// Execution model: one thread block of MOBI_NT threads per stream.  The block
+// Execution model: one thread block per stream, of MOBI_NT compute threads
+// (one per pixel of a 16x16 block) and MOBI_NF copy threads.  The block
 // walks its stream's op chunks, and the ops inside each chunk, strictly in
-// decode order; each op is split into barrier-separated phases (an intra op
-// first loads its taps into shared memory, then predicts and writes, so it
-// never reads a pixel it has already overwritten).  MOBI_PAR runs one phase:
-// on the device every thread runs the body once and the block synchronises;
-// on the host a loop over the thread index runs the same body.
+// decode order.  MOBI_PAR runs one barrier phase: on the device every thread
+// runs the body once and the block synchronises; on the host a loop over the
+// thread index runs the same body.  Every op takes one phase, except a luma
+// quad batch, which takes one phase per present sub-block (each reads the
+// pixels its predecessors wrote).  An intra op reads its taps straight from
+// the plane in the phase that writes its block: the taps (row r - 1 and
+// column c - 1 of each block) lie outside every block the phase writes.
 //
 // Storage is uint8 in global memory: every stored value is a clipped pixel.
 //   ring   (B, 6, R, SP)   frame f writes slot (5 - f) mod 6, reference r of
 //                          frame f reads slot (5 - f + r) mod 6
-//   frames (F, B, R, SP)   frame f of stream b is the working plane of that
-//                          frame; zeroed at the frame's first chunk
-// with R = G8 * 8 rows (8 top margin rows, Y then packed U|V rows) and
-// SP = S + 128 columns (8 left margin columns).
+//   frames (F, B, R, SP)   the decoded frames
+// with R = G8 * 8 rows (8 top margin rows, Y then packed U|V rows, >= 17
+// slack rows) and SP = S + 128 columns (8 left margin columns).
+//
+// The working plane of the frame being decoded is either
+//   * in shared memory (SM = true): rows [MR, MR + HH) by columns [0, RW),
+//     RW = S + 16 (MCOL + S rounded up to 16 bytes).  Every op the scanner
+//     emits writes inside it (luma blocks at rows [MR, MR + H), chroma at
+//     [MR + H, MR + HH), columns [MCOL, MCOL + S)); a read outside it returns
+//     0, which is what the plane in global memory holds there.  The frame is
+//     zeroed at its first chunk and written to frames[f] and its ring slot,
+//     margins included, at its last; or
+//   * frames[f] itself in global memory (SM = false), zeroed at the frame's
+//     first chunk and copied to the ring slot at its last.
+// The wrapper picks shared memory where it fits (mobi_smem_bytes).
+//
+// Inputs that do not depend on the frame being decoded are copied ahead
+// into shared memory: the next chunk's op rows (double-buffered), and for
+// each op its coefficient rows and the reference-window segments its MC
+// reads, MOBI_K - 1 ops ahead of the op being computed, by the copy threads
+// (a ring of MOBI_K slots; cp.async on the device, plain copies on the
+// host).  Copies never
+// cross a chunk, so they never run past a frame's ring commit, which the
+// next frame's MC reads.  The intra tables (20 KB, read-only) are read
+// where they are used, through the read-only cache.
 #pragma once
 #include <stdint.h>
 #include <stddef.h>
+#include <string.h>
 
 #if defined(__CUDACC__)
 #define MOBI_HD __host__ __device__
@@ -30,15 +55,19 @@
 #define MOBI_HD
 #endif
 
-#define MOBI_NT 256       // threads per stream
+#define MOBI_NT 256       // compute threads per stream (one per pixel of a 16x16 block)
+#define MOBI_NF 96        // copy threads per stream (one per coefficient segment)
+#define MOBI_NB (MOBI_NT + MOBI_NF)   // threads per block
 #define MOBI_CHUNK 256    // op rows per chunk (row 0 = header)
 #define MOBI_MR 8         // top margin rows
 #define MOBI_MCOL 8       // left margin columns
+#define MOBI_K 8          // op slots: op r computes while r + 1 .. r + K - 1 copy
+#define MOBI_SMEM_MAX 232448   // dynamic shared memory a block may use (H100)
 
 #if defined(__CUDA_ARCH__)
 #define MOBI_PAR(t, ...) { const int t = (int)threadIdx.x; __VA_ARGS__ } __syncthreads()
 #else
-#define MOBI_PAR(t, ...) for (int t = 0; t < MOBI_NT; ++t) { __VA_ARGS__ }
+#define MOBI_PAR(t, ...) for (int t = 0; t < MOBI_NB; ++t) { __VA_ARGS__ }
 #endif
 
 struct MobiArgs {
@@ -50,11 +79,27 @@ struct MobiArgs {
   int B, nct, F, H, S;
 };
 
-struct MobiGeom { int H, S, G8, R, SP; };
+struct MobiGeom { int H, S, G8, R, SP, HH, RW, nseg; };
 
-// Intra taps of up to two predictions: [0] corner, [1..31] t[0..30],
-// [32..47] l[0..15].
-struct MobiShared { int tap[2][48]; };
+// One op's inputs, copied ahead of it.
+struct MobiSlot {
+  int32_t coef[6][64];    // coefficient rows w3 .. w3 + 5 (clamped to the chunk)
+  uint8_t lum[17][32];    // MC luma window: 17 rows x two 16-byte segments
+  uint8_t chr[2][9][32];  // MC chroma windows, U and V
+};
+
+// Dynamic shared memory: op rows of two chunks, the op slots, then (SM) the
+// plane region.
+struct MobiStage {
+  int32_t ops[2][MOBI_CHUNK * 4];
+  MobiSlot slot[MOBI_K];
+};
+
+// The working plane: rows [r0, r0 + nr) by columns [0, pitch) held at p.
+struct MobiPlane {
+  uint8_t* p;
+  int r0, nr, pitch, SP;
+};
 
 MOBI_HD static inline MobiGeom mobi_geom(int H, int S) {
   MobiGeom g;
@@ -63,7 +108,16 @@ MOBI_HD static inline MobiGeom mobi_geom(int H, int S) {
   g.G8 = (H + H / 2 + 32) / 8;
   g.R = g.G8 * 8;
   g.SP = S + 128;
+  g.HH = H + H / 2;
+  g.RW = S + 16;
+  g.nseg = g.SP / 16;
   return g;
+}
+
+// Dynamic shared memory of one block, with the plane in shared memory or not.
+MOBI_HD static inline int mobi_smem_bytes(int H, int S, int smem_plane) {
+  const MobiGeom g = mobi_geom(H, S);
+  return (int)sizeof(MobiStage) + (smem_plane ? g.HH * g.RW : 0);
 }
 
 MOBI_HD static inline int mobi_min(int a, int b) { return a < b ? a : b; }
@@ -75,6 +129,10 @@ MOBI_HD static inline int mobi_pmod(int a, int m) {
   const int r = a % m;
   return r < 0 ? r + m : r;
 }
+// a mod m for a that is almost always in [0, m): no division on that path
+MOBI_HD static inline int mobi_wrap(int a, int m) {
+  return (unsigned)a < (unsigned)m ? a : mobi_pmod(a, m);
+}
 MOBI_HD static inline int mobi_popc(unsigned v) {
 #if defined(__CUDA_ARCH__)
   return __popc(v);
@@ -83,123 +141,247 @@ MOBI_HD static inline int mobi_popc(unsigned v) {
 #endif
 }
 
-// Plane pixel read: columns wrap modulo SP (the TPU kernel's lane roll);
-// rows outside the plane read 0 and writes outside it are dropped.
-MOBI_HD static inline int mobi_get(const uint8_t* p, const MobiGeom& g, int r, int c) {
-  return (r >= 0 && r < g.R) ? (int)p[(size_t)r * g.SP + mobi_pmod(c, g.SP)] : 0;
+// ------------------------------------------------------- asynchronous copies
+// cp.async on the device (completion per thread by commit groups, made
+// visible to the block by the barrier that follows); plain copies on the host.
+MOBI_HD static inline void mobi_cp16(void* dst, const void* src) {
+#if defined(__CUDA_ARCH__)
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
+#else
+  memcpy(dst, src, 16);
+#endif
 }
-MOBI_HD static inline void mobi_put(uint8_t* p, const MobiGeom& g, int r, int c, int v) {
-  if (r >= 0 && r < g.R && c >= 0 && c < g.SP) p[(size_t)r * g.SP + c] = (uint8_t)v;
+MOBI_HD static inline void mobi_cp_commit() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("cp.async.commit_group;\n" ::);
+#endif
+}
+// Wait until at most N of this thread's newest commit groups are in flight.
+template <int N>
+MOBI_HD static inline void mobi_cp_wait() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+#endif
 }
 
-// Coefficient row `row` of the chunk (clamped: a chunk may close with
-// w3 + n == CHUNK, and dead reads must stay inside it), element (i, j).
-MOBI_HD static inline int mobi_res(const int32_t* rz, int row, int i, int j) {
-  return rz[(size_t)mobi_min(row, MOBI_CHUNK - 1) * 64 + i * 8 + j];
+// 16-byte stores and loads for the plane's zeroing and commit.
+#if defined(__CUDACC__)
+typedef uint4 MobiV16;
+#else
+struct alignas(16) MobiV16 { uint32_t x, y, z, w; };
+#endif
+
+MOBI_HD static inline void mobi_st16(uint8_t* dst, const MobiV16& v) {
+#if defined(__CUDA_ARCH__)
+  *reinterpret_cast<uint4*>(dst) = v;
+#else
+  memcpy(dst, &v, 16);
+#endif
+}
+MOBI_HD static inline MobiV16 mobi_ld16(const uint8_t* src) {
+  MobiV16 v;
+#if defined(__CUDA_ARCH__)
+  v = *reinterpret_cast<const uint4*>(src);
+#else
+  memcpy(&v, src, 16);
+#endif
+  return v;
 }
 
-// CopyBlock's four half-pel cases, truncating >> 1 on each operand.
+// ------------------------------------------------------------------- plane
+// A read outside the held rows and columns returns 0, and a write there is
+// dropped.  The plain executor wraps plane columns modulo SP (the TPU
+// kernel's lane roll); no wrap is taken here, because plane accesses stay
+// within columns [MCOL - 1, MCOL + S + 31), and the columns a wrapped access
+// could reach (the left margin, the pad past MCOL + S) hold 0 in every
+// frame, as do those past the shared-memory region.
+MOBI_HD static inline int mobi_get(const MobiPlane& P, int r, int c) {
+  const unsigned rr = (unsigned)(r - P.r0);
+  return (rr < (unsigned)P.nr && (unsigned)c < (unsigned)P.pitch)
+      ? (int)P.p[rr * (unsigned)P.pitch + c] : 0;
+}
+MOBI_HD static inline void mobi_put(const MobiPlane& P, int r, int c, int v) {
+  const unsigned rr = (unsigned)(r - P.r0);
+  if (rr < (unsigned)P.nr && (unsigned)c < (unsigned)P.pitch)
+    P.p[rr * (unsigned)P.pitch + c] = (uint8_t)v;
+}
+
+// Intra tap k of a block at (r, c): 0 the corner, 1..31 t[0..30] (the row
+// above from column c), 32..47 l[0..15] (the column left of the block).
+MOBI_HD static inline int mobi_tap(const MobiPlane& P, int r, int c, int k) {
+  const bool top = k < 32;
+  return mobi_get(P, top ? r - 1 : r + k - 32, top ? c - 1 + k : c - 1);
+}
+MOBI_HD static inline int mobi_tapv(const MobiPlane& P, int r, int c, int idx) {
+  return mobi_tap(P, r, c, idx <= 16 ? idx : 32 + idx - 17);
+}
+
+// CopyBlock's four half-pel cases (cs = x half | y half << 1), truncating
+// >> 1 on each operand: a; (a>>1)+(b>>1); (a>>1)+(c>>1); and the average
+// of the two horizontal ones.
 MOBI_HD static inline int mobi_halfpel(int a, int b, int c, int d, int cs) {
-  switch (cs) {
-    case 0: return a;
-    case 1: return (a >> 1) + (b >> 1);
-    case 2: return (a >> 1) + (c >> 1);
-    default: return (((a >> 1) + (b >> 1)) >> 1) + (((c >> 1) + (d >> 1)) >> 1);
-  }
+  const int ab = (cs & 1) ? (a >> 1) + (b >> 1) : a;
+  const int cd = (cs & 1) ? (c >> 1) + (d >> 1) : c;
+  return (cs & 2) ? (ab >> 1) + (cd >> 1) : ab;
 }
 
-MOBI_HD static inline int mobi_tapv(const int* tp, int idx) {
-  return idx <= 16 ? tp[idx] : tp[32 + idx - 17];
+// Intra table entry [kind, tap0, tap1, tap2] (bytes, little end first) of
+// pixel (i, j) in `mode`, through the read-only cache on the device.
+MOBI_HD static inline uint32_t mobi_tab(const uint8_t* tabs, int mode, int i, int j) {
+  const uint32_t* p = reinterpret_cast<const uint32_t*>(tabs) + mode * 256 + i * 16 + j;
+#if defined(__CUDA_ARCH__)
+  return __ldg(p);
+#else
+  uint32_t v;
+  memcpy(&v, p, 4);
+  return v;
+#endif
 }
 
-// Directional / DC prediction of pixel (i, j).  Kinds: 0 COPY, 1 AVG2,
-// 2 AVG3, 3 DC, 4 PASS (PASS copies tap 0, the corner).
-MOBI_HD static inline int mobi_pred_dir(const int* tp, const uint8_t* tabs, int mode,
-                                        int i, int j, int npx, int logn, int avt, int avl) {
+// Directional / DC prediction of pixel (i, j) of the block at (r, c).
+// Kinds: 0 COPY, 1 AVG2, 2 AVG3, 3 DC, 4 PASS (PASS copies tap 0, the corner).
+MOBI_HD static inline int mobi_pred_dir(const MobiPlane& P, int r, int c, const uint8_t* tabs,
+                                        int mode, int i, int j, int npx, int logn, int avt,
+                                        int avl) {
   if (mode == 3 || mode == 13) {
     int st = 0, sl = 0;
-    for (int k = 0; k < npx; ++k) {
-      st += tp[1 + k];
-      sl += tp[32 + k];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {   // npx is 4 or 8: unrolled, the reads overlap
+      if (k < npx) {
+        st += mobi_tap(P, r, c, 1 + k);
+        sl += mobi_tap(P, r, c, 32 + k);
+      }
     }
     if (avt && avl) return (st + sl + npx) >> (logn + 1);
     if (avt) return (st + (npx >> 1)) >> logn;
     if (avl) return (sl + (npx >> 1)) >> logn;
     return 0x80;
   }
-  const uint8_t* e = tabs + ((size_t)mode * 256 + i * 16 + j) * 4;
-  const int a = mobi_tapv(tp, e[1]);
-  if (e[0] == 1) return (a + mobi_tapv(tp, e[2]) + 1) >> 1;
-  if (e[0] == 2) return (a + 2 * mobi_tapv(tp, e[2]) + mobi_tapv(tp, e[3]) + 2) >> 2;
+  const uint32_t e = mobi_tab(tabs, mode, i, j);
+  const int kind = e & 0xFF;
+  const int a = mobi_tapv(P, r, c, (e >> 8) & 0xFF);
+  if (kind == 1) return (a + mobi_tapv(P, r, c, (e >> 16) & 0xFF) + 1) >> 1;
+  if (kind == 2)
+    return (a + 2 * mobi_tapv(P, r, c, (e >> 16) & 0xFF) + mobi_tapv(P, r, c, e >> 24) + 2)
+        >> 2;
   return a;
 }
 
-// Closed form of the plane predictors (modes 2/12 and plane16) at (i, j).
-MOBI_HD static inline int mobi_plane_pout(const int* tp, int size, int grad, int i, int j) {
-  const int* t16 = tp + 1;
-  const int* l16 = tp + 32;
+// Closed form of the plane predictors (modes 2/12 and plane16) at (i, j),
+// from the taps tr = t[size - 1], bl = l[size - 1], tj = t[j], li = l[i].
+MOBI_HD static inline int mobi_plane_pout(int tr, int bl, int tj, int li, int size, int grad,
+                                          int i, int j) {
   const int n16 = size == 16;
-  const int tr = t16[size - 1], bl = l16[size - 1];
   const int r5 = ((bl + tr + 1) >> 1) + 2 * grad;
   const int r6 = r5 - bl + n16, r9 = r5 - tr + n16;
   const int tsc = size == 4 ? 4 : 8, asc = size == 4 ? 16 : 64, rsh = size == 4 ? 5 : 7;
   const int r4i = bl * tsc + (j + 1) * (n16 ? (r6 >> 1) : r6);
-  const int bi = n16 ? r4i - t16[j] * 8 + 1 : r4i - t16[j] * tsc;
+  const int bi = n16 ? r4i - tj * 8 + 1 : r4i - tj * tsc;
   const int bt = n16 ? (bi >> 1) : bi;
   const int r10 = tr * tsc + (i + 1) * (n16 ? (r9 >> 1) : r9);
-  const int r7 = n16 ? r10 - l16[i] * 8 + 1 : r10 - l16[i] * tsc;
+  const int r7 = n16 ? r10 - li * 8 + 1 : r10 - li * tsc;
   const int r7t = n16 ? (r7 >> 1) : r7;
-  return (asc * t16[j] + (i + 1) * bt + asc * l16[i] + (j + 1) * r7t + asc) >> rsh;
+  return (asc * tj + (i + 1) * bt + asc * li + (j + 1) * r7t + asc) >> rsh;
 }
 
 // The reference stores plane rows as u32 words composed with |, so an
 // out-of-range value bleeds into its neighbours' bytes: rebuild the word of
 // pixel j's 4-pixel group and take byte j & 3.
-MOBI_HD static inline int mobi_plane_px(const int* tp, int size, int grad, int i, int j) {
+MOBI_HD static inline int mobi_plane_px(const MobiPlane& P, int r, int c, int size,
+                                        int grad, int i, int j) {
   const int j0 = j & ~3;
-  const uint32_t w = (uint32_t)mobi_plane_pout(tp, size, grad, i, j0)
-      | ((uint32_t)mobi_plane_pout(tp, size, grad, i, j0 + 1) << 8)
-      | ((uint32_t)mobi_plane_pout(tp, size, grad, i, j0 + 2) << 16)
-      | ((uint32_t)mobi_plane_pout(tp, size, grad, i, j0 + 3) << 24);
+  const int tr = mobi_tap(P, r, c, size), bl = mobi_tap(P, r, c, 32 + size - 1);
+  const int li = mobi_tap(P, r, c, 32 + i);
+  uint32_t w = 0;
+  for (int k = 0; k < 4; ++k)
+    w |= (uint32_t)mobi_plane_pout(tr, bl, mobi_tap(P, r, c, 1 + j0 + k), li, size, grad, i,
+                                   j0 + k) << (8 * k);
   return (int)((w >> (8 * (j & 3))) & 0xFFu);
 }
 
-// Load 48 taps of a block at (r, c) for thread t < 48: the row above from
-// column c - 1 (corner, t[0..30]) and the column left of it (l[0..15]).
-MOBI_HD static inline void mobi_load_taps(int* tp, const uint8_t* plane, const MobiGeom& g,
-                                          int r, int c, int t) {
-  if (t < 32) tp[t] = mobi_get(plane, g, r - 1, c - 1 + t);
-  else if (t < 48) tp[t] = mobi_get(plane, g, r + t - 32, c - 1);
+// ------------------------------------------------------------ op decoding
+// Coefficient rows an op reads from w3 on (ops/packing.py _op_nrows).
+MOBI_HD static inline int mobi_op_nrows(int w0) {
+  const int typ = w0 & 3, sl = (w0 >> 2) & 7;
+  if (typ == 2) {
+    if (sl == 4) return mobi_popc((w0 >> 5) & 0xF);
+    if (sl == 5) return mobi_popc((w0 >> 5) & 0x3);
+    return 1;
+  }
+  if (typ == 3) {
+    if (sl == 5 || sl == 6) return mobi_popc((w0 >> 21) & 0xF);
+    if (sl == 7) return mobi_popc((w0 >> 10) & 0x3);
+    return (w0 >> 10) & 1;
+  }
+  if (typ == 1) return mobi_popc((w0 >> 3) & 0x3F);
+  return 0;
+}
+
+// Copy thread u's share (u < MOBI_NF) of copying op row w's inputs into
+// slot s: coefficient segment u, and MC window segment u (< 70).  The MC
+// windows use the executor's row clamp, roll within the 24/16-row window
+// and column wrap modulo SP; a row is copied as the two 16-byte segments
+// (SP is a multiple of 16, so they wrap cleanly) that hold its 17 (luma)
+// or 9 (chroma) columns.
+MOBI_HD static inline void mobi_fetch(const MobiGeom& g, const uint8_t* ring,
+                                      const int32_t* rz, int fm, const int32_t* w,
+                                      MobiSlot* s, int u) {
+  const int w0 = w[0], w1 = w[1], w2 = w[2], w3 = w[3];
+  const int typ = w0 & 3;
+  if (u < mobi_op_nrows(w0) * 16) {
+    const int k = u >> 4, seg = u & 15;
+    mobi_cp16(&s->coef[k][seg * 4],
+              rz + (size_t)mobi_min(w3 + k, MOBI_CHUNK - 1) * 64 + seg * 4);
+  }
+  if (typ == 1) {
+    const int rr = w1 & 0xFFFF, cc = w1 >> 16, ref = (w0 >> 13) & 7;
+    const int dx = (int16_t)(w2 & 0xFFFF), dy = w2 >> 16;
+    const uint8_t* rs = ring + (size_t)((5 - fm + ref) % 6) * g.R * g.SP;
+    if (u < 34) {
+      const int i = u >> 1, sg = u & 1;
+      const int yb = rr + (dy >> 1), xb = cc + (dx >> 1);
+      const int gl = mobi_clamp(yb >> 3, 0, g.G8 - 3), yo = yb & 7;
+      const int row = gl * 8 + (i + yo) % 24;
+      const int col = mobi_wrap((xb >> 4) + sg, g.nseg) * 16;
+      mobi_cp16(&s->lum[i][sg * 16], rs + (size_t)row * g.SP + col);
+    }
+    const int v = u - 34;
+    if (v >= 0 && v < 36) {
+      const int half = v / 18, i = (v % 18) >> 1, sg = v & 1;
+      const int cdx = dx >> 1, cdy = dy >> 1;
+      const int cy = MOBI_MR + g.H + ((rr - MOBI_MR) >> 1);
+      const int ccu = MOBI_MCOL + ((cc - MOBI_MCOL) >> 1);
+      const int cyb = cy + (cdy >> 1);
+      const int gc = mobi_clamp(cyb >> 3, 0, g.G8 - 2), co = cyb & 7;
+      const int xo = ccu + (cdx >> 1) + (half ? g.S / 2 : 0);
+      const int row = gc * 8 + (i + co) % 16;
+      const int col = mobi_wrap((xo >> 4) + sg, g.nseg) * 16;
+      mobi_cp16(&s->chr[half][i][sg * 16], rs + (size_t)row * g.SP + col);
+    }
+  }
 }
 
 // ------------------------------------------------------------------ MC (1)
-MOBI_HD static inline void mobi_mc(const MobiGeom& g, const uint8_t* ring, uint8_t* plane,
-                                   const int32_t* rz, int fm, int w0, int w1, int w2,
-                                   int w3, int t) {
+MOBI_HD static inline void mobi_mc(const MobiGeom& g, const MobiPlane& P, const MobiSlot& s,
+                                   int w0, int w1, int w2, int t) {
   const int rr = w1 & 0xFFFF, cc = w1 >> 16;
-  const int bw = (w0 >> 16) & 0x1F, bh = (w0 >> 21) & 0x1F, ref = (w0 >> 13) & 7;
+  const int bw = (w0 >> 16) & 0x1F, bh = (w0 >> 21) & 0x1F;
   const int rmask = (w0 >> 3) & 0x3F;   // fused residual rows: 4 luma quads, U, V
   const int dx = (int16_t)(w2 & 0xFFFF), dy = w2 >> 16;
-  const uint8_t* rs = ring + (size_t)((5 - fm + ref) % 6) * g.R * g.SP;
   {
     const int i = t >> 4, j = t & 15;
     if (i < bh && j < bw) {
-      // 24-row window at a clamped row group; rows roll within the window,
-      // columns modulo SP (a window left of the margin wraps to the pad)
-      const int yb = rr + (dy >> 1), xb = cc + (dx >> 1);
-      const int gl = mobi_clamp(yb >> 3, 0, g.G8 - 3), yo = yb & 7;
-#define MOBI_WL(ii, jj) \
-  (int)rs[(size_t)(gl * 8 + ((ii) + yo) % 24) * g.SP + mobi_pmod((jj) + xb, g.SP)]
-      int px = mobi_halfpel(MOBI_WL(i, j), MOBI_WL(i, j + 1), MOBI_WL(i + 1, j),
-                            MOBI_WL(i + 1, j + 1), (dx & 1) | ((dy & 1) << 1));
-#undef MOBI_WL
+      const int o = (cc + (dx >> 1)) & 15;   // the column within its segment
+      const uint8_t* a = &s.lum[i][o + j];
+      int px = mobi_halfpel(a[0], a[1], a[32], a[33], (dx & 1) | ((dy & 1) << 1));
       if (rmask & 0xF) {
         const int q = (i >> 3) * 2 + (j >> 3);
         if ((rmask >> q) & 1)
-          px += mobi_res(rz, w3 + mobi_popc(rmask & ((1u << q) - 1)), i & 7, j & 7);
+          px += s.coef[mobi_popc(rmask & ((1u << q) - 1))][(i & 7) * 8 + (j & 7)];
         px = mobi_clip8(px);
       }
-      mobi_put(plane, g, rr + i, cc + j, px);
+      mobi_put(P, rr + i, cc + j, px);
     }
   }
   if (t < 128) {
@@ -210,161 +392,231 @@ MOBI_HD static inline void mobi_mc(const MobiGeom& g, const uint8_t* ring, uint8
       const int cy = MOBI_MR + g.H + ((rr - MOBI_MR) >> 1);
       const int ccu = MOBI_MCOL + ((cc - MOBI_MCOL) >> 1);
       const int off = half ? g.S / 2 : 0;
-      const int cyb = cy + (cdy >> 1);
-      const int gc = mobi_clamp(cyb >> 3, 0, g.G8 - 2), co = cyb & 7;
-      const int xo = ccu + (cdx >> 1) + off;
-#define MOBI_WC(ii, jj) \
-  (int)rs[(size_t)(gc * 8 + ((ii) + co) % 16) * g.SP + mobi_pmod((jj) + xo, g.SP)]
-      int px = mobi_halfpel(MOBI_WC(i, j), MOBI_WC(i, j + 1), MOBI_WC(i + 1, j),
-                            MOBI_WC(i + 1, j + 1), (cdx & 1) | ((cdy & 1) << 1));
-#undef MOBI_WC
+      const int o = (ccu + (cdx >> 1) + off) & 15;
+      const uint8_t* a = &s.chr[half][i][o + j];
+      int px = mobi_halfpel(a[0], a[1], a[32], a[33], (cdx & 1) | ((cdy & 1) << 1));
       if (rmask >> 4) {
-        const int nl = w3 + mobi_popc(rmask & 0xF);
+        const int nl = mobi_popc(rmask & 0xF);
         const int bu = (rmask >> 4) & 1, bv = (rmask >> 5) & 1;
-        if (half ? bv : bu) px += mobi_res(rz, half ? nl + bu : nl, i, j);
+        if (half ? bv : bu) px += s.coef[half ? nl + bu : nl][i * 8 + j];
         px = mobi_clip8(px);
       }
-      mobi_put(plane, g, cy + i, ccu + off + j, px);
+      mobi_put(P, cy + i, ccu + off + j, px);
     }
   }
 }
 
 // --------------------------------------------------------------- resid (2)
-MOBI_HD static inline void mobi_resid(const MobiGeom& g, uint8_t* plane, const int32_t* rz,
-                                      int w0, int w1, int w3, int t) {
+MOBI_HD static inline void mobi_resid(const MobiGeom& g, const MobiPlane& P,
+                                      const MobiSlot& s, int w0, int w1, int t) {
   const int rr = w1 & 0xFFFF, cc = w1 >> 16;
   const int sl = (w0 >> 2) & 7;
   if (sl < 4) {                 // plain block
     const int size = 1 << sl, i = t >> 4, j = t & 15;
     if (i < size && j < size)
-      mobi_put(plane, g, rr + i, cc + j,
-               mobi_clip8(mobi_get(plane, g, rr + i, cc + j) + mobi_res(rz, w3, i, j)));
+      mobi_put(P, rr + i, cc + j, mobi_clip8(mobi_get(P, rr + i, cc + j) + s.coef[0][i * 8 + j]));
   } else if (sl == 4) {         // masked 16x16: uncoded quads add 0
     const int mask = (w0 >> 5) & 0xF, i = t >> 4, j = t & 15;
     const int q = (i >> 3) * 2 + (j >> 3);
     const int r = ((mask >> q) & 1)
-        ? mobi_res(rz, w3 + mobi_popc(mask & ((1u << q) - 1)), i & 7, j & 7) : 0;
-    mobi_put(plane, g, rr + i, cc + j, mobi_clip8(mobi_get(plane, g, rr + i, cc + j) + r));
+        ? s.coef[mobi_popc(mask & ((1u << q) - 1))][(i & 7) * 8 + (j & 7)] : 0;
+    mobi_put(P, rr + i, cc + j, mobi_clip8(mobi_get(P, rr + i, cc + j) + r));
   } else if (sl == 5 && t < 128) {   // chroma U+V pair, V at +S/2
     const int half = t >> 6, i = (t >> 3) & 7, j = t & 7;
     const int bu = (w0 >> 5) & 1, bv = (w0 >> 6) & 1;
     const int c = cc + (half ? g.S / 2 : 0) + j;
-    const int r = (half ? bv : bu) ? mobi_res(rz, half ? w3 + bu : w3, i, j) : 0;
-    mobi_put(plane, g, rr + i, c, mobi_clip8(mobi_get(plane, g, rr + i, c) + r));
+    const int r = (half ? bv : bu) ? s.coef[half ? bu : 0][i * 8 + j] : 0;
+    mobi_put(P, rr + i, c, mobi_clip8(mobi_get(P, rr + i, c) + r));
   }
 }
 
 // --------------------------------------------------------------- intra (3)
-MOBI_HD static inline void mobi_intra(const MobiGeom& g, uint8_t* plane, const int32_t* rz,
-                                      const uint8_t* tabs, int w0, int w1, int w2, int w3,
-                                      int ph, int t, MobiShared* sh) {
+// Phase ph of an intra op (only a luma quad batch has more than one: its
+// ph-th present sub-block).  The three forms only place the block; one
+// prediction serves them all.
+MOBI_HD static inline void mobi_intra(const MobiGeom& g, const MobiPlane& P,
+                                      const MobiSlot& s, const uint8_t* tabs, int w0, int w1,
+                                      int w2, int ph, int t) {
   const int rr = w1 & 0xFFFF, cc = w1 >> 16;
   const int isl = (w0 >> 2) & 7;
+  int r = rr, c = cc, n, i, j, mode, avt, avl;
+  int k = -1;           // the coefficient row added, or -1
+  bool plane = false;   // the plane closed form (single blocks, modes 2/12)
   if (isl == 5 || isl == 6) {
     // luma quad batch: sub-blocks in q order, each reading the pixels its
-    // predecessors just wrote (phase 2q loads taps, 2q+1 predicts)
-    const int q = ph >> 1, ssz = isl == 5 ? 4 : 8;
-    const int ro = ssz * (q >> 1), co = ssz * (q & 1);
-    const int nib = (w0 >> (5 + 4 * q)) & 0xF;
-    if (nib == 0xF) return;     // slot absent
-    if (!(ph & 1)) {
-      mobi_load_taps(sh->tap[0], plane, g, rr + ro, cc + co, t);
-      return;
+    // predecessors wrote in the phases before
+    int q = 0;
+    for (int seen = 0; q < 4; ++q) {
+      if (((w0 >> (5 + 4 * q)) & 0xF) == 0xF) continue;   // slot absent
+      if (seen++ == ph) break;
     }
-    const int i = t >> 4, j = t & 15;
-    if (i >= ssz || j >= ssz) return;
-    const int mode = mobi_min(nib + (ssz == 4 ? 10 : 0), 19);
-    const int avt = q < 2 ? (w2 & 1) : 1, avl = (q & 1) == 0 ? ((w2 >> 1) & 1) : 1;
-    int px = mobi_pred_dir(sh->tap[0], tabs, mode, i, j, ssz, ssz == 4 ? 2 : 3, avt, avl);
+    if (q == 4) return;
+    n = isl == 5 ? 4 : 8;
+    i = t >> 4;
+    j = t & 15;
+    if (i >= n || j >= n) return;
+    r += n * (q >> 1);
+    c += n * (q & 1);
+    mode = mobi_min(((w0 >> (5 + 4 * q)) & 0xF) + (n == 4 ? 10 : 0), 19);
+    avt = q < 2 ? (w2 & 1) : 1;
+    avl = (q & 1) == 0 ? ((w2 >> 1) & 1) : 1;
     const int hbits = (w0 >> 21) & 0xF;
-    if ((hbits >> q) & 1)
-      px = mobi_clip8(px + mobi_res(rz, w3 + mobi_popc(hbits & ((1u << q) - 1)), i, j));
-    mobi_put(plane, g, rr + ro + i, cc + co + j, px);
+    if ((hbits >> q) & 1) k = mobi_popc(hbits & ((1u << q) - 1));
   } else if (isl == 7) {
-    // chroma U+V pair: both predictions from taps loaded before either write
-    if (ph == 0) {
-      if (t < 96) {
-        const int half = t >= 48;
-        mobi_load_taps(sh->tap[half], plane, g, rr, cc + (half ? g.S / 2 : 0), t - 48 * half);
-      }
-      return;
-    }
+    // chroma U+V pair: neither block's taps lie in the other block
     if (t >= 128) return;
-    const int half = t >> 6, i = (t >> 3) & 7, j = t & 7;
-    const int mode = mobi_min((w0 >> 5) & 0x1F, 19);
+    const int half = t >> 6;
+    n = 8;
+    i = (t >> 3) & 7;
+    j = t & 7;
+    c += half ? g.S / 2 : 0;
+    mode = mobi_min((w0 >> 5) & 0x1F, 19);
+    avt = rr != MOBI_MR + g.H;
+    avl = cc != MOBI_MCOL;
     const int hasu = (w0 >> 10) & 1, hasv = (w0 >> 11) & 1;
-    const int avt = rr != MOBI_MR + g.H, avl = cc != MOBI_MCOL;
-    int px = mobi_pred_dir(sh->tap[half], tabs, mode, i, j, 8, 3, avt, avl);
-    if (half ? hasv : hasu) px = mobi_clip8(px + mobi_res(rz, half ? w3 + hasu : w3, i, j));
-    mobi_put(plane, g, rr + i, cc + (half ? g.S / 2 : 0) + j, px);
+    if (half ? hasv : hasu) k = half ? hasu : 0;
   } else {
-    // single block: directional/DC, or the plane closed form (modes 2/12)
-    if (ph == 0) {
-      mobi_load_taps(sh->tap[0], plane, g, rr, cc, t);
-      return;
-    }
-    const int size = 1 << isl, i = t >> 4, j = t & 15;
-    if (i >= size || j >= size) return;
-    const int mode = mobi_min((w0 >> 5) & 0x1F, 19);
-    const int has = (w0 >> 10) & 1, avt = (w0 >> 11) & 1, avl = (w0 >> 12) & 1;
-    int px = (mode == 2 || mode == 12)
-        ? mobi_plane_px(sh->tap[0], size, w2, i, j)
-        : mobi_pred_dir(sh->tap[0], tabs, mode, i, j, size == 4 ? 4 : 8, size == 4 ? 2 : 3,
-                        avt, avl);
-    if (has) px = mobi_clip8(px + ((i < 8 && j < 8) ? mobi_res(rz, w3, i, j) : 0));
-    mobi_put(plane, g, rr + i, cc + j, px);
+    // single block: directional/DC, or the plane closed form
+    n = 1 << isl;
+    i = t >> 4;
+    j = t & 15;
+    if (i >= n || j >= n) return;
+    mode = mobi_min((w0 >> 5) & 0x1F, 19);
+    avt = (w0 >> 11) & 1;
+    avl = (w0 >> 12) & 1;
+    plane = mode == 2 || mode == 12;
+    if ((w0 >> 10) & 1) k = 0;
   }
+  int px = plane ? mobi_plane_px(P, r, c, n, w2, i, j)
+                 : mobi_pred_dir(P, r, c, tabs, mode, i, j, n == 4 ? 4 : 8, n == 4 ? 2 : 3,
+                                 avt, avl);
+  if (k >= 0) px = mobi_clip8(px + ((i < 8 && j < 8) ? s.coef[k][i * 8 + j] : 0));
+  mobi_put(P, r + i, c + j, px);
 }
 
-// Barrier-separated phases an op row needs.
+// Barrier phases an op row takes: one, or one per present sub-block of a
+// luma quad batch (the op's first phase runs whatever it holds).
 MOBI_HD static inline int mobi_op_phases(int w0) {
-  const int typ = w0 & 3;
-  if (typ == 3) {
-    const int isl = (w0 >> 2) & 7;
-    return (isl == 5 || isl == 6) ? 8 : 2;
+  const int isl = (w0 >> 2) & 7;
+  if ((w0 & 3) == 3 && (isl == 5 || isl == 6)) {
+    int n = 0;
+    for (int q = 0; q < 4; ++q) n += ((w0 >> (5 + 4 * q)) & 0xF) != 0xF;
+    return n;
   }
-  return typ == 0 ? 0 : 1;
+  return 1;
 }
 
-MOBI_HD static inline void mobi_op_phase(const MobiGeom& g, const uint8_t* ring,
-                                         uint8_t* plane, const int32_t* rz,
-                                         const uint8_t* tabs, int fm, int w0, int w1,
-                                         int w2, int w3, int ph, int t, MobiShared* sh) {
+MOBI_HD static inline void mobi_op_phase(const MobiGeom& g, const MobiPlane& P,
+                                         const MobiSlot& s, const uint8_t* tabs, int w0,
+                                         int w1, int w2, int t) {
   switch (w0 & 3) {
-    case 1: mobi_mc(g, ring, plane, rz, fm, w0, w1, w2, w3, t); break;
-    case 2: mobi_resid(g, plane, rz, w0, w1, w3, t); break;
-    case 3: mobi_intra(g, plane, rz, tabs, w0, w1, w2, w3, ph, t, sh); break;
+    case 1: mobi_mc(g, P, s, w0, w1, w2, t); break;
+    case 2: mobi_resid(g, P, s, w0, w1, t); break;
+    case 3: mobi_intra(g, P, s, tabs, w0, w1, w2, 0, t); break;
     default: break;
   }
 }
 
+// ------------------------------------------------------- frame lifecycle
+MOBI_HD static inline void mobi_zero_plane(const MobiPlane& P, int t) {
+  const MobiV16 z = {0, 0, 0, 0};
+  const size_t n = (size_t)P.nr * P.pitch / 16;
+  for (size_t k = t; k < n; k += MOBI_NB) mobi_st16(P.p + k * 16, z);
+}
+
+// Write the finished frame to frames[f] (shared-memory plane only: the
+// global plane is frames[f]) and to its ring slot, 16 bytes per store.
+template <bool SM>
+MOBI_HD static inline void mobi_commit_frame(const MobiGeom& g, const MobiPlane& P,
+                                             uint8_t* frame, uint8_t* slot, int t) {
+  const int nseg = g.SP / 16;
+  const size_t n = (size_t)g.R * nseg;
+  for (size_t k = t; k < n; k += MOBI_NB) {
+    MobiV16 v = {0, 0, 0, 0};
+    if (SM) {
+      const int row = (int)(k / nseg) - P.r0, col = (int)(k % nseg) * 16;
+      if ((unsigned)row < (unsigned)P.nr && col < P.pitch)
+        v = mobi_ld16(P.p + (size_t)row * P.pitch + col);
+      mobi_st16(frame + k * 16, v);
+    } else {
+      v = mobi_ld16(frame + k * 16);
+    }
+    mobi_st16(slot + k * 16, v);
+  }
+}
+
 // One stream's whole GOP: chunks in order, ops in order inside each chunk.
-MOBI_HD static inline void mobi_run_stream(const MobiArgs& a, int b, MobiShared* sh) {
+// `smem` holds a MobiStage, followed (SM) by the plane region.
+template <bool SM>
+MOBI_HD static inline void mobi_run_stream(const MobiArgs& a, int b, uint8_t* smem) {
   const MobiGeom g = mobi_geom(a.H, a.S);
   const size_t psz = (size_t)g.R * g.SP;
+  MobiStage* st = reinterpret_cast<MobiStage*>(smem);
   uint8_t* ring = a.ring + (size_t)b * 6 * psz;
+  const int32_t* ops = a.ops + (size_t)b * a.nct * MOBI_CHUNK * 4;
+  MOBI_PAR(t, if (t < MOBI_CHUNK) mobi_cp16(&st->ops[0][t * 4], ops + t * 4); mobi_cp_commit();
+           mobi_cp_wait<0>(););
   for (int c = 0; c < a.nct; ++c) {
-    const int32_t* ck = a.ops + ((size_t)b * a.nct + c) * MOBI_CHUNK * 4;
-    const int32_t* rz = a.resid + ((size_t)b * a.nct + c) * MOBI_CHUNK * 64;
+    const int32_t* ck = st->ops[c & 1];
     const int count = mobi_min(ck[0], MOBI_CHUNK - 1), fid = ck[1];
     const int first = ck[2], last = ck[3];
-    if (fid < 0 || fid >= a.F) continue;
-    const int fm = fid % 6;
-    uint8_t* plane = a.frames + ((size_t)fid * a.B + b) * psz;
-    if (first) {
-      MOBI_PAR(t, for (size_t k = t; k < psz; k += MOBI_NT) plane[k] = 0;);
+    const bool live = fid >= 0 && fid < a.F;
+    const int fm = live ? fid % 6 : 0;
+    uint8_t* frame = a.frames + ((size_t)(live ? fid : 0) * a.B + b) * psz;
+    MobiPlane P;
+    P.SP = g.SP;
+    if (SM) {
+      P.p = smem + sizeof(MobiStage);
+      P.r0 = MOBI_MR;
+      P.nr = g.HH;
+      P.pitch = g.RW;
+    } else {
+      P.p = frame;
+      P.r0 = 0;
+      P.nr = g.R;
+      P.pitch = g.SP;
     }
+    const int32_t* rz = a.resid + ((size_t)b * a.nct + c) * MOBI_CHUNK * 64;
+    // the next chunk's op rows (its buffer held chunk c - 1, done), the
+    // plane's zeroing, and the inputs of ops 1 .. K - 1
+    MOBI_PAR(t,
+      if (c + 1 < a.nct && t < MOBI_CHUNK)
+        mobi_cp16(&st->ops[(c + 1) & 1][t * 4], ops + (size_t)(c + 1) * MOBI_CHUNK * 4 + t * 4);
+      mobi_cp_commit();
+      if (live) {
+        if (first) mobi_zero_plane(P, t);
+        for (int r = 1; r < MOBI_K; ++r) {
+          if (t >= MOBI_NT && r <= count)
+            mobi_fetch(g, ring, rz, fm, ck + r * 4, &st->slot[r], t - MOBI_NT);
+          mobi_cp_commit();
+        }
+        mobi_cp_wait<MOBI_K - 2>();
+      } else {
+        mobi_cp_wait<0>();
+      });
+    if (!live) continue;
     for (int r = 1; r <= count; ++r) {
-      const int32_t* w = ck + r * 4;
-      const int w0 = w[0], w1 = w[1], w2 = w[2], w3 = w[3];
+      const int w0 = ck[r * 4], w1 = ck[r * 4 + 1], w2 = ck[r * 4 + 2];
+      const MobiSlot& s = st->slot[r % MOBI_K];
+      // op r computes; op r + K - 1's inputs go into the slot op r - 1
+      // freed; op r + 1's inputs are complete before the barrier.  (No
+      // loop around this phase: the compiler would hoist every op form's
+      // decoding out of it and run them all for every op.)
+      MOBI_PAR(t,
+        if (t < MOBI_NT) mobi_op_phase(g, P, s, a.tabs, w0, w1, w2, t);
+        const int rn = r + MOBI_K - 1;
+        if (t >= MOBI_NT && rn <= count)
+          mobi_fetch(g, ring, rz, fm, ck + rn * 4, &st->slot[rn % MOBI_K], t - MOBI_NT);
+        mobi_cp_commit();
+        mobi_cp_wait<MOBI_K - 2>(););
+      // a luma quad batch: one more phase per further present sub-block
       const int nph = mobi_op_phases(w0);
-      for (int ph = 0; ph < nph; ++ph) {
-        MOBI_PAR(t, mobi_op_phase(g, ring, plane, rz, a.tabs, fm, w0, w1, w2, w3, ph, t, sh););
+      for (int ph = 1; ph < nph; ++ph) {
+        MOBI_PAR(t, if (t < MOBI_NT) mobi_intra(g, P, s, a.tabs, w0, w1, w2, ph, t););
       }
     }
     if (last) {
-      uint8_t* dst = ring + (size_t)(5 - fm) * psz;
-      MOBI_PAR(t, for (size_t k = t; k < psz; k += MOBI_NT) dst[k] = plane[k];);
+      MOBI_PAR(t, mobi_commit_frame<SM>(g, P, frame, ring + (size_t)(5 - fm) * psz, t););
     }
   }
 }

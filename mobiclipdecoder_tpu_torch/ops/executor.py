@@ -9,6 +9,12 @@ whole-GOP launches (F > 1, the JAX package's ``_build_gop_executor``);
 ``frame_launches`` counts its single-frame launches (F == 1, the form
 that ``_build_executor`` computes there).
 
+The kernel keeps the frame being decoded in shared memory where the block
+fits the card's 227 KB (``plane_in_smem``: 256x192 and 400x240) and in
+global memory otherwise (640x480); ``smem_plane_launches`` and
+``global_plane_launches`` count the two forms.  The choice follows the
+geometry alone; a launch the card refuses raises.
+
 ``run_gop_host`` runs the kernel's per-op code (csrc/exec_ops.cuh) built
 for the host with g++; it exists for the CPU tests only.
 """
@@ -26,9 +32,17 @@ from .packing import CHUNK, _geom
 
 launches = 0
 frame_launches = 0
+smem_plane_launches = 0
+global_plane_launches = 0
 
 # stride policy of the codec (MobiclipDecoder.cs:50-52)
 STRIDES = (256, 512, 1024)
+
+# dynamic shared memory one block may use on the H100
+SMEM_MAX = 232_448
+# the kernel's MobiStage (csrc/exec_ops.cuh): two chunks of op rows and
+# MOBI_K = 8 op slots of 2,656 bytes
+STAGE_BYTES = 2 * CHUNK * 4 * 4 + 8 * 2656
 
 _lib = None
 _host_lib = None
@@ -43,7 +57,7 @@ def _load():
         lib = build.load("gop_executor", ["gop_executor.cu"], "nvcc")
         lib.mobi_gop_executor_launch.restype = ctypes.c_int
         lib.mobi_gop_executor_launch.argtypes = [_P, _P, _P, _P, _P,
-                                                 _I, _I, _I, _I, _I, _P]
+                                                 _I, _I, _I, _I, _I, _I, _P]
         _lib = lib
     return _lib
 
@@ -54,9 +68,23 @@ def _load_host():
         lib = build.load("exec_host", ["exec_host.cpp"], "g++", "host")
         lib.mobi_gop_executor_host.restype = ctypes.c_int
         lib.mobi_gop_executor_host.argtypes = [_P, _P, _P, _P, _P,
-                                               _I, _I, _I, _I, _I]
+                                               _I, _I, _I, _I, _I, _I]
+        lib.mobi_gop_executor_host_smem_bytes.restype = ctypes.c_int
+        lib.mobi_gop_executor_host_smem_bytes.argtypes = [_I, _I, _I]
         _host_lib = lib
     return _host_lib
+
+
+def smem_bytes(H: int, S: int, smem_plane: bool) -> int:
+    """Dynamic shared memory of one block: the staging area, plus the plane
+    region (rows MR .. MR + HH, S + 16 columns) when it is in shared
+    memory."""
+    return STAGE_BYTES + ((H + H // 2) * (S + 16) if smem_plane else 0)
+
+
+def plane_in_smem(H: int, S: int) -> bool:
+    """Whether the kernel keeps the working plane in shared memory."""
+    return smem_bytes(H, S, True) <= SMEM_MAX
 
 
 def _check(ops, resid, ring, F: int, H: int, S: int) -> None:
@@ -85,7 +113,8 @@ def run_gop(ops: torch.Tensor, resid: torch.Tensor, ring: torch.Tensor,
     """Execute a packed GOP.  ops (B, nct, CHUNK, 4) int32, resid
     (B, nct, CHUNK, 64) int32 spatial residual rows, ring (B, 6, R, SP)
     uint8 (updated in place).  Returns frames (F, B, R, SP) uint8."""
-    global launches, frame_launches
+    global launches, frame_launches, smem_plane_launches
+    global global_plane_launches
     _check(ops, resid, ring, F, H, S)
     B, nct = ops.shape[:2]
     # every frame's plane is zeroed by the executor at its first chunk
@@ -98,24 +127,37 @@ def run_gop(ops: torch.Tensor, resid: torch.Tensor, ring: torch.Tensor,
     if ops.device.type != "cuda":
         raise ValueError(f"no executor for device {ops.device}")
     lib = _load()
+    smem_plane = plane_in_smem(H, S)
     with torch.cuda.device(ops.device):
         stream = torch.cuda.current_stream(ops.device).cuda_stream
         rc = lib.mobi_gop_executor_launch(
             ops.data_ptr(), resid.data_ptr(), ring.data_ptr(),
-            frames.data_ptr(), tabs.data_ptr(), B, nct, F, H, S, stream)
+            frames.data_ptr(), tabs.data_ptr(), B, nct, F, H, S,
+            int(smem_plane), stream)
     if rc != 0:
-        raise RuntimeError(f"gop executor launch failed: CUDA error {rc}")
+        raise RuntimeError(f"gop executor launch failed: CUDA error {rc} "
+                           f"({smem_bytes(H, S, smem_plane)} B of shared "
+                           f"memory per block)")
     if F == 1:
         frame_launches += 1
     else:
         launches += 1
+    if smem_plane:
+        smem_plane_launches += 1
+    else:
+        global_plane_launches += 1
     return frames
 
 
 def run_gop_host(ops: np.ndarray, resid: np.ndarray, ring: np.ndarray,
-                 F: int, H: int, S: int) -> np.ndarray:
+                 F: int, H: int, S: int,
+                 smem_plane: bool | None = None) -> np.ndarray:
     """The kernel's per-op code built for the host (g++), on numpy arrays;
-    updates ``ring`` in place and returns frames (F, B, R, SP) uint8."""
+    updates ``ring`` in place and returns frames (F, B, R, SP) uint8.
+    ``smem_plane`` forces the plane's form (default: the kernel's choice
+    for this geometry)."""
+    if smem_plane is None:
+        smem_plane = plane_in_smem(H, S)
     ops = np.ascontiguousarray(ops, np.int32)
     resid = np.ascontiguousarray(resid, np.int32)
     if not (ring.flags.c_contiguous and ring.dtype == np.uint8):
@@ -127,5 +169,13 @@ def run_gop_host(ops: np.ndarray, resid: np.ndarray, ring: np.ndarray,
     tabs = kernel_tables("cpu").numpy()
     _load_host().mobi_gop_executor_host(
         ops.ctypes.data, resid.ctypes.data, ring.ctypes.data,
-        frames.ctypes.data, tabs.ctypes.data, B, nct, F, H, S)
+        frames.ctypes.data, tabs.ctypes.data, B, nct, F, H, S,
+        int(smem_plane))
     return frames
+
+
+def host_smem_bytes(H: int, S: int, smem_plane: bool) -> int:
+    """The kernel source's own count of a block's shared memory
+    (``mobi_smem_bytes``), from the host build."""
+    return _load_host().mobi_gop_executor_host_smem_bytes(H, S,
+                                                          int(smem_plane))

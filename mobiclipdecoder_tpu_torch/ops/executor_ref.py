@@ -16,8 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from ..shared.ops.intra_tables import AVG2, AVG3
-
+from .intra_tables import AVG2, AVG3
 from .packing import CHUNK, MCOL, MR, _geom
 
 

@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from ..shared.models.plan import OP_INTRA, OP_MC, OP_RESID
+from ..models.plan import OP_INTRA, OP_MC, OP_RESID
 
 MR = 8       # top margin rows (taps at row -1 read zeros, like fresh planes)
 MCOL = 8     # left margin columns

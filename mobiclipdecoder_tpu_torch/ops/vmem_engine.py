@@ -2,7 +2,7 @@
 (``mobiclipdecoder_tpu/ops/vmem_engine.py``).
 
 B independent streams decode in lockstep.  Per GOP the host C++ scanner
-(``utils/native.py``, shared with the JAX package) emits one packed part
+(``utils/native.py`` over the repository's ``native/scanner.cpp``) emits one packed part
 per stream; ``ops/packing.py`` assembles them into one int32 blob, which is
 uploaded once; on the device the prologue (``ops/prologue.py``) unpacks
 it, ``ops/residuals.py`` runs the IDCT pre-pass, and ONE executor launch
@@ -15,16 +15,14 @@ single frame is a GOP of one).
 from __future__ import annotations
 
 import concurrent.futures as _cf
-import subprocess
 import time
 from typing import Iterator
 
 import numpy as np
 import torch
 
-from ..shared.models.plan import PlanningDecoder
-from ..shared.runtime.metrics import DecodeMetrics
-
+from ..models.plan import PlanningDecoder
+from ..runtime.metrics import DecodeMetrics
 from ..state import ring_shape
 from . import executor, packing
 from .packing import (CHUNK, _assemble_gop_parts, _frame_chunk_spans,
@@ -83,10 +81,10 @@ class VmemBatchDecoder:
         self.natives = None
         if native is not False:
             try:
-                from ..shared.utils.native import NativePlanner
+                from ..utils.native import NativePlanner
                 self.natives = [NativePlanner(width, height, int(version))
                                 for _ in range(batch)]
-            except (OSError, AttributeError, subprocess.CalledProcessError):
+            except (OSError, AttributeError, RuntimeError):
                 if native is True:
                     raise
         self._pool = _cf.ThreadPoolExecutor(max_workers=min(batch, 16))

@@ -5,9 +5,9 @@ The scheme is the JAX package's (``parallel/distributed.py``): GOPs are
 independent (a keyframe resets all decoder state), so a corpus is cut into
 GOP shards, each worker takes a deterministic share, decodes it, and
 writes one ``f<file>_g<gop>.npy`` per shard plus a JSONL ledger that makes
-a rerun resume where the last one stopped.  The sharding, the ledger and
-the gather are shared with the JAX package; ``run_worker`` is the port's,
-because the JAX one builds the JAX decoder.
+a rerun resume where the last one stopped.  ``shard_corpus``,
+``_load_ledger`` and ``gather_corpus`` are copies of the JAX package's;
+``init_distributed`` and ``run_worker`` are the port's own.
 """
 from __future__ import annotations
 
@@ -16,12 +16,11 @@ from pathlib import Path
 
 import numpy as np
 
+from ..models.oracle_video import MobiclipVersion, OracleDecoder
 from ..ops.vmem_engine import VmemBatchDecoder
 from ..runtime.transcode import ENGINES, probe_info
-from ..shared.models.oracle_video import MobiclipVersion, OracleDecoder
-from ..shared.parallel.distributed import (_load_ledger, gather_corpus,
-                                           shard_corpus)
-from ..shared.parallel.gop import assign_shards
+from .gop import (GopShard, ShardProgress, assign_shards, shard_mods,
+                  shard_moflex)
 
 __all__ = ["init_distributed", "run_worker", "shard_corpus",
            "gather_corpus"]
@@ -42,6 +41,48 @@ def init_distributed(coordinator: str | None = None,
     dist.init_process_group(backend, init_method=f"tcp://{coordinator}",
                             world_size=num_processes, rank=process_id)
     return dist.get_rank(), dist.get_world_size()
+
+
+def shard_corpus(files: list[str | Path]) -> list[GopShard]:
+    """Cut every container file of a corpus into GOP shards."""
+    shards: list[GopShard] = []
+    for fid, f in enumerate(files):
+        data = Path(f).read_bytes()
+        if data[:4] == b"MODS":
+            shards.extend(shard_mods(data, file_id=fid))
+        elif data[:2] == b"\x4c\x32":
+            shards.extend(shard_moflex(data, file_id=fid))
+        else:
+            raise ValueError(f"{f}: not a GOP-shardable container")
+    return shards
+
+
+def _load_ledger(path: Path) -> ShardProgress:
+    prog = ShardProgress()
+    if path.exists():
+        for line in path.read_text().splitlines():
+            if line.strip():
+                rec = json.loads(line)
+                prog.done.add((rec["file_id"], rec["gop_index"]))
+    return prog
+
+
+def gather_corpus(files: list[str | Path], out_dir: str | Path) -> dict:
+    """Host-0 gather: verify every (file, gop) shard result is present and
+    stitch per-file frame counts.  Returns {file_id: total_frames}."""
+    out_dir = Path(out_dir)
+    shards = shard_corpus(files)
+    totals: dict[int, int] = {}
+    for s in shards:
+        p = out_dir / f"f{s.file_id}_g{s.gop_index}.npy"
+        if not p.exists():
+            raise FileNotFoundError(f"missing shard result {p}")
+        arr = np.load(p)
+        if arr.shape[0] != s.frame_count:
+            raise ValueError(f"{p}: {arr.shape[0]} frames, the shard has "
+                             f"{s.frame_count}")
+        totals[s.file_id] = totals.get(s.file_id, 0) + s.frame_count
+    return totals
 
 
 def _geometries(files) -> dict:

@@ -20,8 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .shared.ops.intra_tables import KIND, TAPS
-
+from .ops.intra_tables import KIND, TAPS
 from .ops.packing import _geom
 
 

@@ -4,8 +4,9 @@ Like ``mobiclipdecoder_tpu/utils/native.py``'s ``_load``: compile into a
 git-ignored build directory, rebuild when a source is newer than the
 library, load with ``ctypes``.  Kernels use nvcc with a plain C interface
 (no PyTorch headers, so a build takes seconds); the host build of the
-executor's per-op logic, used by the CPU tests only, uses g++.  A failed
-build raises.
+executor's per-op logic (used by the CPU tests only) and the repository's
+C++ scanner (``native/scanner.cpp``, through ``utils/native.py``) use g++.
+A failed build raises.
 """
 from __future__ import annotations
 
@@ -21,11 +22,14 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD = CSRC / "build"
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
-GXX_FLAGS = ["-O2", "-std=c++17", "-shared", "-fPIC"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+GXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
 
-# seconds spent compiling in this process, by library name
+# seconds spent compiling in this process, and the compiler's messages
+# (ptxas -v: registers, spills and shared memory of each kernel), by
+# library name
 build_seconds: dict[str, float] = {}
+build_logs: dict[str, str] = {}
 
 
 def find_nvcc() -> str:
@@ -38,13 +42,14 @@ def find_nvcc() -> str:
 def _stale(lib: Path, sources: list[Path]) -> bool:
     if not lib.exists():
         return True
-    newest = max(p.stat().st_mtime for p in sources + list(CSRC.glob("*.cuh")))
+    headers = [h for d in {p.parent for p in sources} for h in d.glob("*.cuh")]
+    newest = max(p.stat().st_mtime for p in sources + headers)
     return lib.stat().st_mtime < newest
 
 
-def build(name: str, sources: list[str], compiler: str,
+def build(name: str, sources: list[str | Path], compiler: str,
           subdir: str = "") -> Path:
-    """Compile ``sources`` (file names under csrc/) into
+    """Compile ``sources`` (file names under csrc/, or absolute paths) into
     ``csrc/build/<subdir>/lib<name>.so`` when missing or stale; returns
     the library's path."""
     srcs = [CSRC / s for s in sources]
@@ -71,6 +76,7 @@ def build(name: str, sources: list[str], compiler: str,
             raise RuntimeError(f"{compiler} failed building {name}:\n"
                                f"{res.stdout}\n{res.stderr}")
         os.replace(tmp, lib)
+        build_logs[name] = res.stdout + res.stderr
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
@@ -78,6 +84,6 @@ def build(name: str, sources: list[str], compiler: str,
     return lib
 
 
-def load(name: str, sources: list[str], compiler: str,
+def load(name: str, sources: list[str | Path], compiler: str,
          subdir: str = "") -> ctypes.CDLL:
     return ctypes.CDLL(str(build(name, sources, compiler, subdir)))

@@ -3,22 +3,27 @@ executor kernel against its plain PyTorch version, and the decoder on the
 card against the decoder on the CPU.  They skip where no CUDA device is
 present (the kernel has no CPU mode; its per-op code is checked on the CPU
 through the host build in test_torch_executor.py).  This file imports no
-JAX, so it runs on a machine without it:
+JAX and nothing of the JAX package, so it runs on a machine without it:
 
     python -m pytest tests/test_torch_cuda.py -q
 """
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
-from mobiclipdecoder_tpu.models.oracle_video import MobiclipVersion
-from mobiclipdecoder_tpu.models.plan import PlanningDecoder
-from mobiclipdecoder_tpu.testing.synth import StreamSynthesizer
-
 from mobiclipdecoder_tpu_torch import state
+from mobiclipdecoder_tpu_torch.models.oracle_video import MobiclipVersion
+from mobiclipdecoder_tpu_torch.models.plan import PlanningDecoder
+from mobiclipdecoder_tpu_torch.testing.synth import StreamSynthesizer
 from mobiclipdecoder_tpu_torch.ops import executor, packing
 from mobiclipdecoder_tpu_torch.ops.residuals import _residuals
 from mobiclipdecoder_tpu_torch.ops.vmem_engine import VmemBatchDecoder
+
+sys.path.insert(0, str(Path(__file__).parent))
+from torch_gops import EDGE, edge_plans  # noqa: E402
 
 W, H, S = 64, 48, 256
 
@@ -86,12 +91,18 @@ def test_cuda_decoder_matches_cpu_decoder(cuda):
     np.testing.assert_array_equal(gpu.ring.cpu().numpy(), cpu.ring.numpy())
 
 
+def _plane_counts():
+    return executor.smem_plane_launches, executor.global_plane_launches
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("nframes", [1, 4])
-@pytest.mark.parametrize("size", [(272, 32), (528, 32), (400, 240)])
+@pytest.mark.parametrize("size", [(272, 32), (528, 32), (400, 240),
+                                  (640, 480)])
 def test_cuda_kernel_matches_plain_at_wide_strides(cuda, size, nframes):
-    """Strides 512 and 1024 (and the real 400x240), as a GOP and as the
-    single-frame launch: kernel == plain executor, frames and ring."""
+    """Strides 512 and 1024 (and the real 400x240 and 640x480), as a GOP
+    and as the single-frame launch: kernel == plain executor, frames and
+    ring; the plane is in shared memory except at 640x480."""
     w, h = size
     v = MobiclipVersion.MOFLEX_3DS
     synths = [StreamSynthesizer(w, h, v, seed=s) for s in (41, 42)]
@@ -115,14 +126,47 @@ def test_cuda_kernel_matches_plain_at_wide_strides(cuda, size, nframes):
         0, 256, state.ring_shape(B, h, stride)).astype(np.uint8)
     ring_c = torch.from_numpy(ring0).to(cuda)
     counts = (executor.launches, executor.frame_launches)
+    planes = _plane_counts()
     frames_c = executor.run_gop(torch.from_numpy(ops).to(cuda),
                                 resid.to(cuda), ring_c, nframes, h, stride)
     torch.cuda.synchronize()
     assert (executor.launches - counts[0],
             executor.frame_launches - counts[1]) == (
                 (0, 1) if nframes == 1 else (1, 0))
+    in_smem = size != (640, 480)
+    assert tuple(b - a for a, b in zip(planes, _plane_counts())) == (
+        (1, 0) if in_smem else (0, 1))
     ring_p = torch.from_numpy(ring0.copy())
     frames_p = executor.run_gop(torch.from_numpy(ops), resid, ring_p,
                                 nframes, h, stride)
+    np.testing.assert_array_equal(frames_c.cpu().numpy(), frames_p.numpy())
+    np.testing.assert_array_equal(ring_c.cpu().numpy(), ring_p.numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("source", sorted(EDGE))
+def test_cuda_kernel_matches_plain_on_edge_gops(cuda, source):
+    """GOPs whose ops read and write at the plane's edges (margins, pad
+    columns, slack rows, clamped and wrapped MC windows; tests/
+    torch_gops.py), frames as wide as their stride: kernel == plain."""
+    w, h, s = EDGE[source]
+    nb, nf = 2, 4
+    ops, coefs, sizes = packing._pack_gop_chunks(
+        edge_plans(12, w, h, s, nb, nf), nb)
+    nct = ops.shape[1]
+    resid = _residuals(torch.from_numpy(coefs).view(-1, 64),
+                       torch.from_numpy(sizes).view(-1)).view(nb, nct, 256,
+                                                               64)
+    ring0 = np.random.default_rng(3).integers(
+        0, 256, state.ring_shape(nb, h, s)).astype(np.uint8)
+    ring_c = torch.from_numpy(ring0).to(cuda)
+    planes = _plane_counts()
+    frames_c = executor.run_gop(torch.from_numpy(ops).to(cuda),
+                                resid.to(cuda), ring_c, nf, h, s)
+    torch.cuda.synchronize()
+    assert _plane_counts()[0] == planes[0] + 1
+    ring_p = torch.from_numpy(ring0.copy())
+    frames_p = executor.run_gop(torch.from_numpy(ops), resid, ring_p, nf, h,
+                                s)
     np.testing.assert_array_equal(frames_c.cpu().numpy(), frames_p.numpy())
     np.testing.assert_array_equal(ring_c.cpu().numpy(), ring_p.numpy())

@@ -212,8 +212,8 @@ def test_unported_geometry_and_missing_device_raise(monkeypatch):
 
 def test_port_never_imports_jax():
     """No file of the port imports JAX or the JAX package by name (its
-    ``__init__`` imports JAX); the JAX-free modules come through the
-    port's ``shared`` package."""
+    ``__init__`` imports JAX); the codec's host modules are the port's own
+    copies."""
     files = sorted(p for p in PORT.rglob("*.py")
                    if "build" not in p.relative_to(PORT).parts)
     files.append(PORT.parent / "chip_smoke.py")
@@ -242,26 +242,29 @@ def test_port_never_imports_jax():
 
 
 def test_importing_the_port_leaves_jax_unimported():
-    """In a fresh interpreter, the port's modules (its transcoder, corpus
-    worker and CLI included) and everything chip_smoke.py imports load
-    neither jax nor the JAX package."""
+    """In a fresh interpreter, every module of the port and everything
+    chip_smoke.py imports load neither jax nor the JAX package: no loaded
+    module has either name, and no loaded module's file lies under
+    mobiclipdecoder_tpu/ (a package whose search path points there would
+    load the JAX package's files under another name)."""
     import subprocess
     import sys
+    mods = sorted(
+        ".".join(("mobiclipdecoder_tpu_torch",)
+                 + p.relative_to(PORT).with_suffix("").parts).removesuffix(
+                     ".__init__")
+        for p in PORT.rglob("*.py")
+        if "build" not in p.relative_to(PORT).parts)
+    assert "mobiclipdecoder_tpu_torch.utils.native" in mods
+    jax_dir = str(PORT.parent / "mobiclipdecoder_tpu") + "/"
     code = (
-        "import sys; pre = set(sys.modules); sys.path.insert(0, '.');"
-        "import chip_smoke, mobiclipdecoder_tpu_torch.ops.vmem_engine;"
-        "import mobiclipdecoder_tpu_torch.ops.executor;"
-        "import mobiclipdecoder_tpu_torch.runtime.transcode;"
-        "import mobiclipdecoder_tpu_torch.parallel.distributed;"
-        "import mobiclipdecoder_tpu_torch.__main__;"
-        "from mobiclipdecoder_tpu_torch.shared.testing.synth import "
-        "StreamSynthesizer;"
-        "from mobiclipdecoder_tpu_torch.shared.models.oracle_video import "
-        "OracleDecoder;"
-        "from mobiclipdecoder_tpu_torch.shared.utils.native import "
-        "NativePlanner;"
-        "bad = sorted(m for m in set(sys.modules) - pre if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'mobiclipdecoder_tpu'));"
+        "import importlib, os, sys; pre = set(sys.modules);"
+        "sys.path.insert(0, '.'); import chip_smoke;"
+        f"[importlib.import_module(m) for m in {mods!r}];"
+        "new = [sys.modules[m] for m in set(sys.modules) - pre];"
+        "bad = sorted(m.__name__ for m in new if m.__name__.split('.')[0] in "
+        "('jax', 'jaxlib', 'mobiclipdecoder_tpu') or os.path.realpath("
+        f"getattr(m, '__file__', None) or '').startswith({jax_dir!r}));"
         "print(bad); sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], cwd=PORT.parent,
                          capture_output=True, text=True, timeout=120)

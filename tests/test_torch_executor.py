@@ -8,6 +8,8 @@ runs only on a GPU; its arithmetic is checked here through the host (g++)
 build of csrc/exec_ops.cuh.
 """
 import shutil
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -24,6 +26,9 @@ from mobiclipdecoder_tpu_torch.ops import executor, packing
 from mobiclipdecoder_tpu_torch.ops.prologue import (crop_frames,
                                                     renormalize_ring)
 from mobiclipdecoder_tpu_torch.ops.residuals import _residuals
+
+sys.path.insert(0, str(Path(__file__).parent))
+from torch_gops import EDGE, edge_plans  # noqa: E402
 
 W, H, S = 64, 48, 256
 B, F = 2, 4
@@ -272,19 +277,29 @@ def test_gop_continues_from_ring_carried_over_from_jax():
 
 # stride 512 (3DS 400x240) and 1024 (Wii 640x480) at a height of 32
 WIDE = {"synth_s512": (272, 32, 512), "synth_s1024": (528, 32, 1024)}
+# the hand-built families beside "hand" (the "all" family)
+HAND = {f"hand_{k}": k for k in sorted(FAMILIES) if k != "all"}
 
 
 @pytest.mark.parametrize("source", ["synth_ds", "synth_moflex", "hand",
-                                    *WIDE])
+                                    *WIDE, *HAND, *EDGE])
 def test_host_build_of_kernel_matches_plain(source):
     """csrc/exec_ops.cuh built for the host with g++ (the kernel's own
     per-op code, thread loop on the host) equals the plain executor, at
-    every stride."""
+    every stride, with the working plane in shared memory and in global
+    memory: on synthesized streams, on every hand-built op family, and on
+    GOPs whose ops read and write at the plane's edges (tests/
+    torch_gops.py)."""
     if shutil.which("g++") is None:
         pytest.skip("g++ is not installed")
     h, s = H, S
     if source == "hand":
         plans = _hand_plans(11)
+    elif source in HAND:
+        plans = _hand_plans(11, HAND[source])
+    elif source in EDGE:
+        w, h, s = EDGE[source]
+        plans = edge_plans(12, w, h, s, B, F)
     elif source in WIDE:
         w, h, s = WIDE[source]
         plans = _synth_plans(MobiclipVersion.MOFLEX_3DS, (5, 6), size=(w, h))
@@ -298,10 +313,98 @@ def test_host_build_of_kernel_matches_plain(source):
         0, 256, state.ring_shape(B, h, s)).astype(np.uint8)
     ring_t = torch.from_numpy(ring0.copy())
     frames = executor.run_gop(torch.from_numpy(ops), resid, ring_t, F, h, s)
-    ring_h = ring0.copy()
-    frames_h = executor.run_gop_host(ops, resid.numpy(), ring_h, F, h, s)
-    np.testing.assert_array_equal(frames_h, frames.numpy())
-    np.testing.assert_array_equal(ring_h, ring_t.numpy())
+    for smem_plane in (True, False):
+        ring_h = ring0.copy()
+        frames_h = executor.run_gop_host(ops, resid.numpy(), ring_h, F, h, s,
+                                         smem_plane=smem_plane)
+        np.testing.assert_array_equal(frames_h, frames.numpy(),
+                                      err_msg=f"smem_plane={smem_plane}")
+        np.testing.assert_array_equal(ring_h, ring_t.numpy(),
+                                      err_msg=f"smem_plane={smem_plane}")
+
+
+# (width, height) -> (stride, plane in shared memory): the codec's three
+# geometries
+GEOMETRIES = {(256, 192): (256, True), (400, 240): (512, True),
+              (640, 480): (1024, False)}
+
+
+def test_plane_form_by_geometry():
+    """The wrapper keeps the working plane in shared memory at 256x192 and
+    400x240 and in global memory at 640x480, and a block's shared memory
+    stays within the H100's 232,448 bytes at each geometry."""
+    for (w, h), (s, in_smem) in GEOMETRIES.items():
+        assert executor.plane_in_smem(h, s) is in_smem, (w, h)
+        assert executor.smem_bytes(h, s, in_smem) <= executor.SMEM_MAX
+        assert executor.smem_bytes(h, s, True) == (
+            executor.STAGE_BYTES + (h + h // 2) * (s + 16))
+    assert executor.smem_bytes(192, 256, True) == 107_776
+    assert executor.smem_bytes(240, 512, True) == 219_520
+    assert executor.smem_bytes(480, 1024, False) == 29_440
+    assert executor.smem_bytes(480, 1024, True) > executor.SMEM_MAX
+
+
+def test_kernel_source_counts_the_same_shared_memory():
+    """The wrapper's count of a block's shared memory is the kernel
+    source's own (mobi_smem_bytes, through the host build)."""
+    if shutil.which("g++") is None:
+        pytest.skip("g++ is not installed")
+    for h, s in [(h, s) for (_w, h), (s, _m) in GEOMETRIES.items()] + [
+            (H, S), (32, 512), (32, 1024)]:
+        for smem_plane in (True, False):
+            assert executor.host_smem_bytes(h, s, smem_plane) == \
+                executor.smem_bytes(h, s, smem_plane), (h, s, smem_plane)
+
+
+@pytest.mark.parametrize("version", [MobiclipVersion.MODS_DS,
+                                     MobiclipVersion.MOFLEX_3DS])
+def test_scanner_ops_write_inside_the_plane_region(version):
+    """Every op the native scanner emits writes inside rows [MR, MR + HH)
+    and columns [MCOL, MCOL + S) of the plane, the region the kernel keeps
+    in shared memory (where it reads 0 outside), at every stride and for
+    frames as wide as their stride."""
+    from mobiclipdecoder_tpu_torch.utils.native import NativePlanner
+    MR, MCOL = packing.MR, packing.MCOL
+    for w, h in ((64, 48), (256, 48), (272, 32), (512, 32), (528, 32),
+                 (1024, 32)):
+        s = 256 if w <= 256 else (512 if w <= 512 else 1024)
+        for seed in (3, 4):
+            syn = StreamSynthesizer(w, h, version, seed=seed)
+            pkts = [syn.iframe(0x18) if f == 0 else syn.pframe()
+                    for f in range(4)]
+            r = NativePlanner(w, h, int(version)).scan_gop_packed(pkts)
+            assert r["done"] == len(pkts) and not r["err"]
+            ops, _c, _s = packing._part_dense_arrays([packing._gop_part(r)])
+            rows = np.concatenate([ck[1:1 + ck[0, 0]] for ck in ops[0]])
+            w0, w1 = (rows[:, k].astype(np.int64) for k in range(2))
+            typ, sl = w0 & 3, (w0 >> 2) & 7
+            rr, cc = w1 & 0xFFFF, w1 >> 16
+            # (row, col, height, width) of each written block
+            blocks = []
+            mc = typ == 1
+            bw, bh = (w0 >> 16) & 0x1F, (w0 >> 21) & 0x1F
+            blocks.append((rr[mc], cc[mc], bh[mc], bw[mc]))
+            cy = MR + h + ((rr - MR) >> 1)
+            ccu = MCOL + ((cc - MCOL) >> 1)
+            for off in (0, s // 2):
+                blocks.append((cy[mc], ccu[mc] + off, bh[mc] >> 1,
+                               bw[mc] >> 1))
+            res = typ == 2
+            n = np.where(sl < 4, 1 << np.minimum(sl, 3), np.where(sl == 4,
+                                                                  16, 8))
+            blocks.append((rr[res], cc[res], n[res], n[res]))
+            pair = res & (sl == 5)
+            blocks.append((rr[pair], cc[pair] + s // 2, 8, 8))
+            it = typ == 3
+            n = np.where(sl <= 4, 1 << np.minimum(sl, 4),
+                         np.where(sl == 5, 8, np.where(sl == 6, 16, 8)))
+            blocks.append((rr[it], cc[it], n[it], n[it]))
+            pair = it & (sl == 7)
+            blocks.append((rr[pair], cc[pair] + s // 2, 8, 8))
+            assert mc.any() and res.any() and it.any()
+            for r0, c0, bh_, bw_ in blocks:
+                assert (r0 >= MR).all() and (r0 + bh_ <= MR + h + h // 2).all()
+                assert (c0 >= MCOL).all() and (c0 + bw_ <= MCOL + s).all()
 
 
 def test_wrapper_checks_inputs_and_never_falls_back():

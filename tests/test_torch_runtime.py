@@ -31,8 +31,6 @@ from mobiclipdecoder_tpu_torch.__main__ import main  # noqa: E402
 from mobiclipdecoder_tpu_torch.ops.vmem_engine import (  # noqa: E402
     VmemVideoDecoder)
 from mobiclipdecoder_tpu_torch.runtime import transcode as pt  # noqa: E402
-from mobiclipdecoder_tpu_torch.shared.runtime import (  # noqa: E402
-    transcode as shared_tc)
 
 
 def _same(a, b, pcm=True):
@@ -60,9 +58,9 @@ def test_decode_mods_matches_jax_tpu_and_oracle():
 
 
 def test_chunk_boundary_exactness(monkeypatch):
-    """More frames than CHUNK_FRAMES (patched on the shared module, which
-    the port's decode functions read): chunk seams are exact."""
-    monkeypatch.setattr(shared_tc, "CHUNK_FRAMES", 3)
+    """More frames than CHUNK_FRAMES (patched on the port's transcoder,
+    whose decode functions read it at each call): chunk seams are exact."""
+    monkeypatch.setattr(pt, "CHUNK_FRAMES", 3)
     blob = _build_fixture(nframes=8, seed=13, key_at=(0, 4))
     got = list(pt.decode_mods(blob, engine="cpu"))
     assert len(got) == 8
@@ -222,20 +220,25 @@ def test_cli_info_and_play(tmp_path, capsys):
 
 
 def test_jax_module_keeps_its_own_factory():
-    """The port binds its factory into the shared module object only: the
-    JAX package's transcoder module is a different object and still
-    builds the JAX engines."""
-    assert shared_tc is not jt
-    assert shared_tc._make_video_decoder is pt._make_video_decoder
-    assert jt._make_video_decoder is not pt._make_video_decoder
+    """The port's transcoder is a module of its own with its own decoder
+    factory; the JAX package's transcoder still builds the JAX engines.
+    The JAX engine names raise in the port, and so does the encoder, which
+    is not ported."""
+    assert pt is not jt
+    assert pt._make_video_decoder.__module__ == (
+        "mobiclipdecoder_tpu_torch.runtime.transcode")
     assert jt._make_video_decoder.__module__ == (
         "mobiclipdecoder_tpu.runtime.transcode")
     from mobiclipdecoder_tpu.ops.vmem_engine import VmemVideoDecoder as JV
     assert isinstance(jt._make_video_decoder(64, 48, MobiclipVersion.MODS_DS,
                                              "tpu"), JV)
+    assert isinstance(pt._make_video_decoder(64, 48, MobiclipVersion.MODS_DS,
+                                             "cpu"), VmemVideoDecoder)
     for eng in ("tpu", "tpu-xla", "gpu"):
         with pytest.raises(ValueError, match=eng):
             pt._make_video_decoder(64, 48, MobiclipVersion.MODS_DS, eng)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+        pt.encode_y4m_to_moflex("in.y4m", "out.moflex")
 
 
 def test_engine_cuda_raises_without_gpu(tmp_path, monkeypatch):
