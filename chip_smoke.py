@@ -69,9 +69,9 @@ SWEEP_B = (8, 32, 128, 256)
 WIDE = ((400, 240), (640, 480))     # strides 512 and 1024, Moflex profile
 TRANSCODE_FRAMES = 20               # crosses one CHUNK_FRAMES (16) seam
 BATCH_FILES, BATCH_GOP = 8, 5       # [batch]: 8 files x 2 GOPs of 5 frames
-# H100 SXM peaks from the on-chip-measurement guide's table: memory rate,
-# and the 32-bit rate outside the tensor cores (the table gives no int32
-# rate; the executor's arithmetic is 32-bit integer)
+# H100 SXM peaks: memory rate, and the 32-bit rate outside the tensor
+# cores (no int32 peak is published; the executor's arithmetic is 32-bit
+# integer)
 HBM_BYTES_PER_S = 3.35e12
 OPS_PER_S = 67e12
 

@@ -2,7 +2,7 @@
 
 This module is the *executable specification* of the codec: a routine-for-routine
 behavioral mirror of the reference decoder
-(`/root/reference/LibMobiclip/Codec/Mobiclip/MobiclipDecoder.cs`, cited per
+(LibMobiclip's `Codec/Mobiclip/MobiclipDecoder.cs`, cited per
 method below), written in plain Python/NumPy.  It is intentionally sequential
 and unoptimized — its job is to be obviously correct so that every vectorized
 TPU kernel in `mobiclipdecoder_tpu.ops` can be property-tested against it
