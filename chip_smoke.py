@@ -19,10 +19,32 @@ and the user's entry points:
                IMA audio and a MOC5 640x480, 20 frames each: the .y4m and
                .wav bytes equal those of `--engine oracle`;
   [batch]      the corpus worker over 8 MODS files of 2 GOPs each, 8
-               streams per launch: every shard equals the oracle worker's.
+               streams per launch: every shard equals the oracle worker's;
+  [wavefront]  the wavefront engine (plain torch on the card, the JAX
+               package's tpu-xla): BatchVideoDecoder.decode_gop over the
+               main path's 8 streams x 2 GOPs == the oracle and the
+               executor's frames; WavefrontVideoDecoder at 400x240 and
+               640x480 == oracle; `decode --engine wavefront` of the three
+               [transcode] containers == `--engine oracle` bytes; ms per
+               GOP, frames/s, intra levels and device launches per frame;
+  [encode]     the encoder at all three sizes (quantizer 0x14, gop 4, refs
+               2, me_range 6, 3 frames, Moflex profile): its SAD volumes on
+               the card == on the CPU, its bytes == the CPU encoder's, its
+               packets decoded by the executor and by the wavefront engine
+               == oracle; `encode` then `decode --engine cuda` == `decode
+               --engine oracle` bytes; SadVolume ms at 256x192, range 16,
+               R=5;
+  [audio]      IMA ADPCM scans on the card (64 channels x 1 s) == the host
+               decoder, FastAudioBatchDecoder on the card (16 channels x 50
+               packets) == the host decoders; the ms of each.
 
-Every phase raises on a mismatch.  Before each run of a user path the
-kernel's launch counters are set to 0, and they are read after it; they
+The CPU references of [wavefront] and [encode] (the oracle of streams 2-7,
+the encoder with device="cpu") run in a pool of spawned processes, started
+when [wavefront] starts and shut down after [encode].
+
+Every phase raises on a mismatch.  Before each run of a user path that
+reaches the executor its launch counters are set to 0, and they are read
+after it; they
 also show which form of the kernel ran (the working plane in shared
 memory at 256x192 and 400x240, in global memory at 640x480).
 ``--kernel-only`` stops after the build (whose ptxas report it prints) and
@@ -47,9 +69,11 @@ bound_ms: the least time the card could take for the same work.
 """
 from __future__ import annotations
 
+import concurrent.futures as _cf
 import contextlib
 import io
 import json
+import multiprocessing
 import subprocess
 import sys
 import tempfile
@@ -69,6 +93,11 @@ SWEEP_B = (8, 32, 128, 256)
 WIDE = ((400, 240), (640, 480))     # strides 512 and 1024, Moflex profile
 TRANSCODE_FRAMES = 20               # crosses one CHUNK_FRAMES (16) seam
 BATCH_FILES, BATCH_GOP = 8, 5       # [batch]: 8 files x 2 GOPs of 5 frames
+WF_FRAMES = 4                       # [wavefront] streams at 400x240, 640x480
+ENC = dict(quantizer=0x14, gop=4, refs=2, me_range=6)   # [encode]
+ENC_FRAMES = 3
+IMA_CHANNELS, IMA_SAMPLES = 64, 32768     # [audio]: 1 s at 32768 Hz
+FA_CHANNELS, FA_PACKETS = 16, 50
 # H100 SXM peaks: memory rate, and the 32-bit rate outside the tensor
 # cores (no int32 peak is published; the executor's arithmetic is 32-bit
 # integer)
@@ -663,8 +692,353 @@ def transcode_case(tmp: Path, name: str, blob: bytes, suffix: str,
     if st["frames"] != so["frames"] or st["frames"] != TRANSCODE_FRAMES:
         raise AssertionError(f"{name}: {st['frames']} vs {so['frames']}")
     return {"stats": st, "oracle": so, "launches": launches,
-            "planes": planes,
+            "planes": planes, "src": src, "oracle_bytes": outs["oracle"],
             "files": {k: len(v) for k, v in outs["cuda"].items()}}
+
+
+# ------------------------------------------------- wavefront, encode, audio
+def oracle_task(version: int, size, packets) -> np.ndarray:
+    """oracle_frames in a pool process (one host thread)."""
+    from mobiclipdecoder_tpu_torch.models.oracle_video import MobiclipVersion
+    torch.set_num_threads(1)
+    return oracle_frames(MobiclipVersion(version), packets, size)
+
+
+def encoder_frames(size, n=ENC_FRAMES):
+    """The frames of the JAX package's on-chip verify's encoder case
+    (tools/verify_onchip.py): a moving sine pattern with noise."""
+    w, h = size
+    rng = np.random.default_rng(5)
+    yy, xx = np.mgrid[0:h, 0:w]
+    out = []
+    for f in range(n):
+        y = (128 + 60 * np.sin(xx / 11 + f / 2) * np.cos(yy / 7)
+             + rng.normal(0, 4, (h, w))).clip(0, 255).astype(np.uint8)
+        u = (128 + 40 * np.sin(xx[::2, ::2] / 13)).clip(0, 255).astype(
+            np.uint8)
+        v = (128 + 40 * np.cos(yy[::2, ::2] / 9)).clip(0, 255).astype(
+            np.uint8)
+        out.append((y, u, v))
+    return out
+
+
+def encode_task(size, device: str):
+    """Encode encoder_frames(size) in the Moflex profile on ``device``;
+    returns (packets + 2 pad bytes each, each frame's SAD volume or None,
+    seconds)."""
+    from mobiclipdecoder_tpu_torch.models.encoder import MobiclipEncoder
+    from mobiclipdecoder_tpu_torch.models.oracle_video import MobiclipVersion
+    if device == "cpu":
+        torch.set_num_threads(1)
+    enc = MobiclipEncoder(*size, MobiclipVersion.MOFLEX_3DS, device=device,
+                          **ENC)
+    pkts, vols = [], []
+    t0 = time.perf_counter()
+    for y, u, v in encoder_frames(size):
+        enc._sadvol = None
+        pkts.append(enc.encode_frame(y, u, v) + b"\x00\x00")
+        vols.append(None if enc._sadvol is None else enc._sadvol.vol)
+    return pkts, vols, time.perf_counter() - t0
+
+
+def cuda_ms(fn, reps=10) -> float:
+    """Mean ms of fn() on the card over reps calls (CUDA events), after a
+    warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    for _ in range(reps):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+def device_launches(fn) -> tuple[int | None, str]:
+    """(device activities (kernels, copies, fills) that torch.profiler sees
+    while fn() runs, or None, and why not).  fn() runs either way; a
+    profiler that cannot trace leaves the count unmeasured."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    try:
+        prof = profile(activities=[ProfilerActivity.CUDA])
+        prof.__enter__()
+    except (RuntimeError, AssertionError) as e:
+        fn()
+        return None, f"the profiler did not start: {e}"
+    try:
+        fn()
+        torch.cuda.synchronize()
+    finally:
+        prof.__exit__(None, None, None)
+    n = sum(1 for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA)
+    return (n, "") if n else (None, "the profiler saw no device activity")
+
+
+def write_y4m(path: Path, size, n: int) -> None:
+    from mobiclipdecoder_tpu_torch.utils.rawio import Y4MWriter
+    wr = Y4MWriter(path, *size, 24.0)
+    for y, u, v in encoder_frames(size, n):
+        wr.add_frame(y, u, v)
+    wr.close()
+
+
+def wavefront_phase(ds, gops, k1_outs, main_oracle, oracle_futs, wide_pkts,
+                    wide_futs, trans, smi) -> dict:
+    """[wavefront]: the main path's streams through BatchVideoDecoder on the
+    card == the oracle and the executor's frames; WavefrontVideoDecoder at
+    the wide sizes == oracle; the CLI's wavefront engine == oracle bytes."""
+    from mobiclipdecoder_tpu_torch.models.pipeline import (
+        WavefrontVideoDecoder)
+    from mobiclipdecoder_tpu_torch.parallel.batch import BatchVideoDecoder
+    from mobiclipdecoder_tpu_torch.models.oracle_video import MobiclipVersion
+    mf = MobiclipVersion.MOFLEX_3DS
+    res = {}
+    with phase("wavefront"):
+        bd = BatchVideoDecoder(W, H, ds, batch=B, native=True, device="cuda")
+        wf, ms, wall = [], [], []
+        for g in range(NGOPS):
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            t0 = time.perf_counter()
+            e0.record()
+            wf.append(bd.decode_gop(gops[g]))
+            e1.record()
+            torch.cuda.synchronize()
+            wall.append(time.perf_counter() - t0)
+            ms.append(e0.elapsed_time(e1))
+        for g in range(NGOPS):
+            if wf[g].shape != k1_outs[g].shape or not (
+                    wf[g] == k1_outs[g]).all():
+                bad = np.argwhere((wf[g] != k1_outs[g]).any(axis=(2, 3)))
+                raise AssertionError(f"wavefront GOP {g}: (frame, stream) "
+                                     f"{bad[:8].tolist()} differ from the "
+                                     f"executor's")
+        t0 = time.perf_counter()
+        for b in range(B):
+            exp = main_oracle[b] if b in main_oracle else oracle_futs[
+                b].result()
+            got = np.concatenate([wf[g][:, b] for g in range(NGOPS)])
+            bad = np.argwhere((got != exp).any(axis=(1, 2))).ravel()
+            if bad.size:
+                raise AssertionError(f"wavefront stream {b}: frames "
+                                     f"{bad.tolist()} differ from the oracle")
+        t_wait = time.perf_counter() - t0
+        # levels per frame round (the loop runs the deepest stream's)
+        probe = BatchVideoDecoder(W, H, ds, batch=B, native=True,
+                                  device="cpu")
+        levels = [int(probe.scan_packets(fp)["n_levels"].max())
+                  for fp in gops[0]]
+        # device launches of the first frame rounds of GOP 0 (a whole
+        # GOP's trace takes minutes to read back): the I-frame, then P
+        pd = BatchVideoDecoder(W, H, ds, batch=B, native=True, device="cuda")
+        l_i, why = device_launches(lambda: pd.decode_frames(gops[0][0]))
+        l_p, why_p = device_launches(
+            lambda: [pd.decode_frames(fp) for fp in gops[0][1:4]])
+        launches = None if l_i is None or l_p is None else (
+            l_i + l_p) / 4
+        why = why or why_p
+        res["main"] = {
+            "shape": f"B={B} F={F} {W}x{H}", "ms_per_gop": ms,
+            "wall_s_per_gop": wall,
+            "frames_per_s": [B * F / w for w in wall],
+            "levels_per_frame_round": float(np.mean(levels)),
+            "levels_iframe": levels[0],
+            "levels_first_4": levels[:4],
+            "device_launches_iframe_round": l_i,
+            "device_launches_pframe_round": (None if l_p is None
+                                             else l_p / 3)}
+        log(f"[wavefront] BatchVideoDecoder.decode_gop B={B} {NGOPS}x{F} "
+            f"frames == the executor's frames and the oracle on all {B} "
+            f"streams (oracle wait {t_wait:.1f} s); ms per GOP (CUDA events) "
+            + ", ".join(f"{m:.1f}" for m in ms) + "; frames/s "
+            + ", ".join(f"{B * F / w:.1f}" for w in wall)
+            + f"; intra levels per frame round {np.mean(levels):.1f} "
+            f"(I-frame {levels[0]}); device launches per frame round "
+            + (f"not measured ({why})" if launches is None
+               else f"{l_i} for the I-frame, {l_p / 3:.0f} per P-frame "
+               f"(frames 1-3; their levels {levels[1:4]}), torch.profiler")
+            + f" | {smi}")
+        for size, pkts in wide_pkts.items():
+            dec = WavefrontVideoDecoder(*size, mf, native=True, device="cuda")
+            t0 = time.perf_counter()
+            got = np.stack([np.concatenate(dec.decode_frame(p))
+                            for p in pkts])
+            t_dec = time.perf_counter() - t0
+            exp = wide_futs[size].result()
+            if got.shape != exp.shape or not (got == exp).all():
+                bad = np.argwhere((got != exp).any(axis=(1, 2))).ravel()
+                raise AssertionError(f"wavefront {size}: frames "
+                                     f"{bad.tolist()} differ from the oracle")
+            res[f"{size[0]}x{size[1]}"] = {"frames": len(pkts),
+                                           "s_per_frame": t_dec / len(pkts)}
+            log(f"[wavefront] WavefrontVideoDecoder {size[0]}x{size[1]}: "
+                f"{len(pkts)} frames == oracle, {t_dec / len(pkts):.3f} s "
+                f"per frame | {smi}")
+        for cname, r in trans.items():
+            src = r["src"]
+            st = cli(["decode", str(src), str(src.parent / f"{cname}_wf"),
+                      "--engine", "wavefront"])
+            got = {p.suffix: p.read_bytes()
+                   for p in sorted(src.parent.glob(f"{cname}_wf.*"))}
+            if got != r["oracle_bytes"]:
+                raise AssertionError(f"{cname}: decode --engine wavefront "
+                                     f"bytes differ from --engine oracle's")
+            res[cname] = {"fps": st["fps"], "frames": st["frames"]}
+            log(f"[wavefront] {cname}: decode --engine wavefront -> "
+                f"{ {k: len(v) for k, v in got.items()} } bytes, equal to "
+                f"--engine oracle; {st['frames']} frames at {st['fps']} "
+                f"frames/s | {smi}")
+    return res
+
+
+def encode_phase(mf, sizes, enc_futs, smi) -> dict:
+    """[encode]: the encoder on the card == on the CPU (volumes and
+    bytes); its packets through the executor and the wavefront engine ==
+    oracle; the CLI's encode then decode; SadVolume's time."""
+    from mobiclipdecoder_tpu_torch.models.pipeline import (
+        WavefrontVideoDecoder)
+    from mobiclipdecoder_tpu_torch.ops.mesearch import _sad8_volume
+    from mobiclipdecoder_tpu_torch.ops.vmem_engine import VmemVideoDecoder
+    res = {}
+    with phase("encode"):
+        for size in sizes:
+            label = f"{size[0]}x{size[1]}"
+            pkts, vols, t_enc = encode_task(size, "cuda")
+            cpk, cvols, t_cpu = enc_futs[size].result()
+            if pkts != cpk:
+                raise AssertionError(f"encode {label}: bytes on the card "
+                                     f"differ from the CPU encoder's")
+            for k, (a, b) in enumerate(zip(vols, cvols)):
+                if (a is None) != (b is None) or (
+                        a is not None and not np.array_equal(a, b)):
+                    raise AssertionError(f"encode {label} frame {k}: SAD "
+                                         f"volume differs from the CPU's")
+            exp = oracle_frames(mf, pkts, size)
+            vd = VmemVideoDecoder(*size, mf, native=True, device="cuda")
+            zero_counts()
+            yuv, offs, err = vd.decode_stream_chunk(pkts)
+            k1_launches = sum(read_counts())
+            wd = WavefrontVideoDecoder(*size, mf, native=True, device="cuda")
+            wfy = np.stack([np.concatenate(wd.decode_frame(p)) for p in pkts])
+            if (err is not None or k1_launches < 1
+                    or offs != [len(p) for p in pkts]
+                    or not (yuv == exp).all() or not (wfy == exp).all()):
+                raise AssertionError(f"encode {label}: decoded packets differ "
+                                     f"from the oracle (err {err}, launches "
+                                     f"{k1_launches})")
+            nvol = sum(v is not None for v in vols)
+            res[label] = {"bytes": [len(p) for p in pkts], "s_card": t_enc,
+                          "s_cpu": t_cpu, "volumes": nvol}
+            log(f"[encode] {label}: {len(pkts)} frames, "
+                f"{sum(map(len, pkts))} bytes, equal to the CPU encoder's "
+                f"with {nvol} equal SAD volumes; executor ({k1_launches} "
+                f"launches) and wavefront decode == oracle; encode "
+                f"{t_enc:.1f} s (card) vs {t_cpu:.1f} s (CPU, spawned) | "
+                f"{smi}")
+        with tempfile.TemporaryDirectory() as d:
+            tmp = Path(d)
+            write_y4m(tmp / "in.y4m", (W, H), ENC_FRAMES)
+            st = cli(["encode", str(tmp / "in.y4m"), str(tmp / "e.moflex")])
+            zero_counts()
+            cli(["decode", str(tmp / "e.moflex"), str(tmp / "cuda")])
+            n = sum(read_counts())
+            cli(["decode", str(tmp / "e.moflex"), str(tmp / "oracle"),
+                 "--engine", "oracle"])
+            a = (tmp / "cuda.y4m").read_bytes()
+            if n < 1 or a != (tmp / "oracle.y4m").read_bytes():
+                raise AssertionError(f"encode CLI: decode --engine cuda "
+                                     f"(launches {n}) differs from oracle")
+        rng = np.random.default_rng(3)
+        cur = torch.from_numpy(rng.integers(0, 256, (H, W)).astype(
+            np.int32)).cuda()
+        refs = torch.from_numpy(rng.integers(0, 256, (5, H, W)).astype(
+            np.int32)).cuda()
+        sad_ms = cuda_ms(lambda: _sad8_volume(cur, refs, 16))
+        res["cli"] = {"frames": st["frames"], "bytes": st["bytes"],
+                      "s": st["seconds"]}
+        res["sad_volume_ms_256x192_r16_R5"] = sad_ms
+        log(f"[encode] CLI encode of a {ENC_FRAMES}-frame {W}x{H} .y4m "
+            f"({st['bytes']} bytes, {st['seconds']} s) then decode "
+            f"--engine cuda == --engine oracle; SadVolume 256x192 range 16 "
+            f"R=5: {sad_ms:.3f} ms (CUDA events, mean of 10) | {smi}")
+    return res
+
+
+def audio_phase(smi) -> dict:
+    """[audio]: the IMA scans and the FastAudio lattice on the card ==
+    the host decoders."""
+    from mobiclipdecoder_tpu_torch.models.audio_fastaudio import (
+        FastAudioDecoder)
+    from mobiclipdecoder_tpu_torch.models.audio_ima import ImaAdpcmDecoder
+    from mobiclipdecoder_tpu_torch.ops.adpcm import (decode_nibbles,
+                                                     decode_packets)
+    from mobiclipdecoder_tpu_torch.ops.audio_lpc import FastAudioBatchDecoder
+    res = {}
+    with phase("audio"):
+        rng = np.random.default_rng(21)
+        body = rng.integers(0, 256, (IMA_CHANNELS, IMA_SAMPLES // 2),
+                            dtype=np.uint8)
+        idx0 = rng.integers(0, 89, IMA_CHANNELS).astype(np.int32)
+        last0 = rng.integers(-32768, 32768, IMA_CHANNELS).astype(np.int32)
+        t0 = time.perf_counter()
+        got = decode_packets(body, idx0, last0, device="cuda")
+        t_call = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        for c in range(IMA_CHANNELS):
+            dec = ImaAdpcmDecoder()
+            dec.is_init = True
+            dec.index, dec.last = int(idx0[c]), int(last0[c])
+            raw = body[c].tobytes()
+            want = np.concatenate([dec.decode(raw, o, 128)
+                                   for o in range(0, len(raw), 128)])
+            if not np.array_equal(got[c], want):
+                raise AssertionError(f"IMA channel {c} differs from the host "
+                                     f"decoder")
+        t_host = (time.perf_counter() - t0) * 1e3
+        b = torch.from_numpy(body.astype(np.int32)).cuda()
+        nib = torch.stack([b & 0xF, b >> 4], dim=-1).reshape(
+            IMA_CHANNELS, IMA_SAMPLES)
+        i0, l0 = (torch.from_numpy(x).cuda() for x in (idx0, last0))
+        ima_ms = cuda_ms(lambda: decode_nibbles(nib, i0, l0))
+        res["ima"] = {"shape": f"{IMA_CHANNELS}x{IMA_SAMPLES}",
+                      "ms": ima_ms, "call_ms": t_call, "host_ms": t_host}
+        log(f"[audio] IMA decode_packets on the card, {IMA_CHANNELS} "
+            f"channels x {IMA_SAMPLES} samples (128-byte packets) == host "
+            f"ImaAdpcmDecoder; scans {ima_ms:.3f} ms (CUDA events, mean of "
+            f"10), whole call {t_call:.1f} ms, host decoder {t_host:.0f} ms "
+            f"| {smi}")
+        pk = rng.integers(0, 256, (FA_PACKETS, FA_CHANNELS, 40),
+                          dtype=np.uint8)
+        fa = FastAudioBatchDecoder(FA_CHANNELS, device="cuda")
+        hosts = [FastAudioDecoder() for _ in range(FA_CHANNELS)]
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t_dev = 0.0
+        ms = 0.0
+        for k in range(FA_PACKETS):
+            pkts = [pk[k, c].tobytes() for c in range(FA_CHANNELS)]
+            t0 = time.perf_counter()
+            e0.record()
+            got = fa.decode(pkts)
+            e1.record()
+            torch.cuda.synchronize()
+            t_dev += time.perf_counter() - t0
+            ms += e0.elapsed_time(e1)
+            for c, h in enumerate(hosts):
+                h.data = pkts[c]
+                h.offset = 0
+                if not np.array_equal(got[c], h.decode()):
+                    raise AssertionError(f"FastAudio packet {k} channel {c} "
+                                         f"differs from the host decoder")
+        res["fastaudio"] = {"shape": f"{FA_CHANNELS}x{FA_PACKETS}",
+                            "ms_per_round": ms / FA_PACKETS,
+                            "wall_ms_per_round": t_dev * 1e3 / FA_PACKETS}
+        log(f"[audio] FastAudioBatchDecoder on the card, {FA_CHANNELS} "
+            f"channels x {FA_PACKETS} packets == host FastAudioDecoders; "
+            f"{ms / FA_PACKETS:.2f} ms per round of 256 samples (CUDA "
+            f"events), {t_dev * 1e3 / FA_PACKETS:.2f} ms wall | {smi}")
+    return res
 
 
 def main(argv=None) -> int:
@@ -744,9 +1118,11 @@ def main(argv=None) -> int:
             if out.shape != (F, B, H + H // 2, 256) or out.dtype != np.uint8:
                 raise AssertionError(f"GOP {g}: shape {out.shape} {out.dtype}")
         t0 = time.perf_counter()
+        main_oracle = {}
         for b in (0, 1):
             exp = oracle_frames(ds, [gops[g][f][b] for g in range(NGOPS)
                                      for f in range(F)])
+            main_oracle[b] = exp
             got = np.concatenate([outs[g][:, b] for g in range(NGOPS)])
             bad = np.argwhere((got != exp).any(axis=(1, 2))).ravel()
             if bad.size:
@@ -909,10 +1285,12 @@ def main(argv=None) -> int:
             log("[executor] " + facts_line(k, "B=1 F=1", v["facts"])
                 + f" | {smi}")
 
-    # 9. the CLI transcoder: cuda bytes == oracle bytes
+    # 9. the CLI transcoder: cuda bytes == oracle bytes (the containers
+    # stay for [wavefront])
     trans = {}
-    with phase("transcode"), tempfile.TemporaryDirectory() as d:
-        tmp = Path(d)
+    trans_dir = tempfile.TemporaryDirectory()
+    with phase("transcode"):
+        tmp = Path(trans_dir.name)
         t0 = time.perf_counter()
         cases = (
             ("mods_256x192", mods_container(TRANSCODE_FRAMES, 11, (0, 10)),
@@ -970,6 +1348,30 @@ def main(argv=None) -> int:
             f"frames/s); every shard == oracle; launches whole-GOP "
             f"{batch_launches[0]} | {smi}")
 
+    # the CPU references of [wavefront] and [encode], in spawned processes
+    ctx = multiprocessing.get_context("spawn")
+    with _cf.ProcessPoolExecutor(max_workers=6, mp_context=ctx) as pool:
+        oracle_futs = {
+            b: pool.submit(oracle_task, int(ds), (W, H),
+                           [gops[g][f][b] for g in range(NGOPS)
+                            for f in range(F)]) for b in range(2, B)}
+        wide_pkts = {size: [fr[0] for fr in synth_gops(mf, [7], 1, WF_FRAMES,
+                                                       size)[0]]
+                     for size in WIDE}
+        wide_futs = {size: pool.submit(oracle_task, int(mf), size, pk)
+                     for size, pk in wide_pkts.items()}
+        enc_sizes = ((W, H),) + WIDE
+        enc_futs = {size: pool.submit(encode_task, size, "cpu")
+                    for size in enc_sizes}
+        try:
+            wavefront = wavefront_phase(ds, gops, outs, main_oracle,
+                                        oracle_futs, wide_pkts, wide_futs,
+                                        trans, smi)
+        finally:
+            trans_dir.cleanup()
+        encoded = encode_phase(mf, enc_sizes, enc_futs, smi)
+    audio = audio_phase(smi)
+
     src = "mobiclipdecoder_tpu_torch/csrc/gop_executor.cu"
     k1 = "mobiclipdecoder_tpu/ops/vmem_engine.py:1286"
     def facts(k: dict) -> dict:
@@ -1016,6 +1418,8 @@ def main(argv=None) -> int:
         if kern["launches"] < 1:
             raise AssertionError(f"{kern['name']} {kern.get('geometry')}: "
                                  f"its path launched it no time")
+    log("[paths] " + json.dumps({"wavefront": wavefront, "encode": encoded,
+                                 "audio": audio}))
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(smi)

@@ -1,19 +1,24 @@
 """mobiclipdecoder_tpu_torch: the Mobiclip decoder's whole-GOP decode path
 ported to PyTorch, with its executor as a hand-written CUDA kernel for
-NVIDIA Hopper (sm_90a), at DS 256x192, 3DS 400x240 and Wii 640x480.
+NVIDIA Hopper (sm_90a), at DS 256x192, 3DS 400x240 and Wii 640x480; and
+the rest of the JAX package's device code (the wavefront engine, the
+encoder's SAD volume, the batched audio ops) as plain torch on the card.
 
 The JAX package ``mobiclipdecoder_tpu`` is the reference this port is held
 against; the port imports nothing of it.  The codec's host modules (oracle
 ``models/oracle_video.py``, planner ``models/plan.py``, the ctypes bridge
 to the repository's C++ scanner ``utils/native.py``, synthesizer
 ``testing/synth.py``, tables, containers, host audio decoders, writers,
-GOP sharding) are the port's own copies of the JAX package's files, at the
-same relative paths; ``tests/test_torch_copies.py`` holds them equal.
+GOP sharding, the encoder, the Majesco stub) are the port's own copies of
+the JAX package's files, at the same relative paths;
+``tests/test_torch_copies.py`` holds them equal.
 
 Layers, from the entry point down:
   __main__.py          python -m mobiclipdecoder_tpu_torch
-                       {decode,info,play,batch}
-  runtime/transcode.py the transcoder with the port's decoders
+                       {decode,info,play,batch,encode}
+  runtime/transcode.py the transcoder with the port's decoders (engines
+                       oracle, cuda, cpu, wavefront, wavefront-cpu) and
+                       encode_y4m_to_moflex
   parallel/distributed.py  corpus worker (GOP shards, lockstep batches)
   ops/vmem_engine.py   VmemBatchDecoder / VmemVideoDecoder (host scan,
                        dispatch, download)
@@ -23,5 +28,14 @@ Layers, from the entry point down:
   ops/executor.py      the executor kernel's wrapper (csrc/gop_executor.cu);
                        ops/executor_ref.py is its plain PyTorch version
   state.py             reference-ring layout and the kernel's intra tables
+  models/pipeline.py   the wavefront engine: WavefrontVideoDecoder, one
+                       frame as MC, residuals and intra dependency levels
+                       in batched torch (ops/idct.py: its IDCTs)
+  parallel/batch.py    BatchVideoDecoder: B streams on the wavefront engine
+  models/encoder.py    MobiclipEncoder (host), whose motion search takes
+                       its full-search SAD volume from ops/mesearch.py
+  ops/adpcm.py         IMA ADPCM as two log-step scans (batched torch)
+  ops/audio_lpc.py     FastAudioBatchDecoder: the LPC lattice over channels
+  utils/device.py      the device check every entry point makes
 """
 __version__ = "0.1.0"

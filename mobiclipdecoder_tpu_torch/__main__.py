@@ -4,11 +4,16 @@
     python -m mobiclipdecoder_tpu_torch info <in>
     python -m mobiclipdecoder_tpu_torch play <in> [--no-pacing]
     python -m mobiclipdecoder_tpu_torch batch <inputs...> <out_dir>
+    python -m mobiclipdecoder_tpu_torch encode <in.y4m> <out.moflex>
 
-The flags and the JSON stats are those of ``python -m mobiclipdecoder_tpu``;
-the engines are ``cuda`` (the default: the CUDA executor, which needs a
-GPU and raises without one), ``cpu`` (the same decoder with the plain
-PyTorch executor) and ``oracle``.
+The flags and the JSON stats are those of ``python -m mobiclipdecoder_tpu``.
+The engines of ``decode`` and ``play`` are ``cuda`` (the default: the CUDA
+executor, which needs a GPU and raises without one), ``cpu`` (the same
+decoder with the plain PyTorch executor), ``wavefront`` (the wavefront
+engine on the GPU, the JAX package's ``tpu-xla``; raises without one),
+``wavefront-cpu`` (the same on the CPU) and ``oracle``; ``batch`` takes
+``cuda``, ``cpu`` and ``oracle``.  ``encode`` runs its motion search's SAD
+volume on ``--device`` (``cuda`` by default, which raises without a GPU).
 """
 import argparse
 import json
@@ -16,7 +21,8 @@ import sys
 import time
 
 from .parallel.distributed import run_worker
-from .runtime.transcode import ENGINES, play, probe_info, transcode
+from .runtime.transcode import (BATCH_ENGINES, ENGINES, encode_y4m_to_moflex,
+                                play, probe_info, transcode)
 
 
 def main(argv=None) -> int:
@@ -50,11 +56,18 @@ def main(argv=None) -> int:
                                      "idempotent (ledger-resumable)")
     b.add_argument("inputs", nargs="+", help="MODS/Moflex container files")
     b.add_argument("out_dir")
-    b.add_argument("--engine", choices=ENGINES, default="cuda")
+    b.add_argument("--engine", choices=BATCH_ENGINES, default="cuda")
     b.add_argument("--worker-id", type=int, default=0)
     b.add_argument("--n-workers", type=int, default=1)
     b.add_argument("--batch", type=int, default=8,
                    help="streams decoded per executor launch")
+    e = sub.add_parser("encode", help="encode a .y4m file to a .moflex")
+    e.add_argument("input")
+    e.add_argument("output")
+    e.add_argument("--qp", type=int, default=0x16)
+    e.add_argument("--gop", type=int, default=30)
+    e.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                   help="where the motion search's SAD volume runs")
     args = p.parse_args(argv)
     if args.cmd == "decode":
         t0 = time.perf_counter()
@@ -83,6 +96,12 @@ def main(argv=None) -> int:
                            worker_id=args.worker_id,
                            n_workers=args.n_workers,
                            engine=args.engine, batch=args.batch)
+        stats["seconds"] = round(time.perf_counter() - t0, 3)
+        print(json.dumps(stats))
+    elif args.cmd == "encode":
+        t0 = time.perf_counter()
+        stats = encode_y4m_to_moflex(args.input, args.output, qp=args.qp,
+                                     gop=args.gop, device=args.device)
         stats["seconds"] = round(time.perf_counter() - t0, 3)
         print(json.dumps(stats))
     return 0

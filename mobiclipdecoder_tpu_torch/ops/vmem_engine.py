@@ -24,6 +24,7 @@ import torch
 from ..models.plan import PlanningDecoder
 from ..runtime.metrics import DecodeMetrics
 from ..state import ring_shape
+from ..utils.device import check_device
 from . import executor, packing
 from .packing import (CHUNK, _assemble_gop_parts, _frame_chunk_spans,
                       _gop_part, _pack_gop_blob_sparse, _pack_gop_chunks,
@@ -68,10 +69,7 @@ class VmemBatchDecoder:
                  *, device, native: bool | None = None, crop: bool = False):
         # crop=True slices results to frame width ON DEVICE before the
         # download: (F, B, HH, W) with the UV halves repacked as U|V
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("device 'cuda' was asked for, but "
-                               "torch.cuda.is_available() is false")
+        self.device = check_device(device)
         self.B = batch
         self.crop = bool(crop)
         self.width, self.height = width, height

@@ -18,7 +18,7 @@ import numpy as np
 
 from ..models.oracle_video import MobiclipVersion, OracleDecoder
 from ..ops.vmem_engine import VmemBatchDecoder
-from ..runtime.transcode import ENGINES, probe_info
+from ..runtime.transcode import BATCH_ENGINES, probe_info
 from .gop import (GopShard, ShardProgress, assign_shards, shard_mods,
                   shard_moflex)
 
@@ -125,9 +125,9 @@ def run_worker(files: list[str | Path], out_dir: str | Path,
     executor launch; with "oracle" one by one.  Idempotent: the ledger
     ``<out_dir>/worker<k>.ledger.jsonl`` records finished shards, and a
     rerun skips them.  Returns summary stats."""
-    if engine not in ENGINES:
-        raise ValueError(f"unknown engine {engine!r}; the port's engines "
-                         f"are {ENGINES}")
+    if engine not in BATCH_ENGINES:
+        raise ValueError(f"unknown engine {engine!r}; the corpus worker's "
+                         f"engines are {BATCH_ENGINES}")
     out_dir = Path(out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
     ledger_path = out_dir / f"worker{worker_id}.ledger.jsonl"

@@ -11,10 +11,16 @@ the Windows AVI library.  A copy of the JAX package's
   ``"cuda"``    ``VmemVideoDecoder`` on the GPU: the hand-written CUDA
                 executor.  Raises where no CUDA device is present;
   ``"cpu"``     the same decoder on the CPU, where the executor is its
-                plain PyTorch version.  For tests; never chosen on its own.
+                plain PyTorch version.  For tests; never chosen on its own;
+  ``"wavefront"``  ``WavefrontVideoDecoder`` on the GPU: the wavefront
+                engine (the counterpart of the JAX package's
+                ``"tpu-xla"``), batched torch per dependency level.  Raises
+                where no CUDA device is present;
+  ``"wavefront-cpu"``  the same decoder on the CPU, asked for explicitly.
 
-The JAX package's ``"tpu"`` and ``"tpu-xla"`` engines raise
-``ValueError`` here: their decoders need JAX.
+The wavefront decoder has no ``decode_stream_chunk``, so the transcoder
+decodes it frame by frame, as the JAX package does ``"tpu-xla"``.  The JAX
+package's ``"tpu"`` and ``"tpu-xla"`` names raise ``ValueError`` here.
 """
 from __future__ import annotations
 
@@ -84,7 +90,10 @@ def width_stride(width: int) -> int:
     return 256 if width <= 256 else (512 if width <= 512 else 1024)
 
 
-ENGINES = ("oracle", "cuda", "cpu")
+ENGINES = ("oracle", "cuda", "cpu", "wavefront", "wavefront-cpu")
+#: the corpus worker's engines (the JAX package's ``batch`` takes no
+#: ``"tpu-xla"`` either)
+BATCH_ENGINES = ("oracle", "cuda", "cpu")
 
 
 def _make_video_decoder(width: int, height: int, version: MobiclipVersion,
@@ -95,6 +104,11 @@ def _make_video_decoder(width: int, height: int, version: MobiclipVersion,
         # crop=True: results come back at frame width (U|V adjacent)
         return VmemVideoDecoder(width, height, version, device=engine,
                                 native=True, crop=True)
+    if engine in ("wavefront", "wavefront-cpu"):
+        from ..models.pipeline import WavefrontVideoDecoder
+        return WavefrontVideoDecoder(
+            width, height, version,
+            device="cuda" if engine == "wavefront" else "cpu")
     if engine in ("tpu", "tpu-xla"):
         raise ValueError(f"engine {engine!r} belongs to the JAX package; "
                          f"the port's engines are {ENGINES}")
@@ -731,12 +745,24 @@ def read_y4m(path: str | Path):
 
 
 def encode_y4m_to_moflex(in_path: str | Path, out_path: str | Path,
-                         qp: int = 0x16, gop: int = 30) -> dict:
-    """Encode a .y4m into a single-video-stream .moflex.  Not ported: the
-    encoder's motion search is ROADMAP Queue 1 item 8."""
-    raise NotImplementedError(
-        "encoding is not ported to mobiclipdecoder_tpu_torch yet (ROADMAP "
-        "Queue 1 item 8, the encoder's motion search)")
+                         qp: int = 0x16, gop: int = 30, *,
+                         device="cuda") -> dict:
+    """Encode a .y4m into a single-video-stream .moflex (the role of
+    MoflexSimpleVideoMuxer, MoflexSimpleVideoMuxer.cs:14-71).  The motion
+    search's SAD volume runs on ``device``."""
+    from ..containers.moflex import MoflexMuxer, VideoStream
+    from ..models.encoder import MobiclipEncoder
+    frames, (W, H, fps) = read_y4m(in_path)
+    enc = MobiclipEncoder(W, H, MobiclipVersion.MOFLEX_3DS,
+                          quantizer=qp, gop=gop, device=device)
+    mux = MoflexMuxer([VideoStream(stream_index=0, codec_id=0,
+                                   fps_rate=int(round(fps * 1000)),
+                                   fps_scale=1000, width=W, height=H)])
+    for y, u, v in frames:
+        mux.add_frame(0, enc.encode_frame(y, u, v))
+    Path(out_path).write_bytes(mux.to_bytes())
+    return {"frames": len(frames), "width": W, "height": H,
+            "bytes": Path(out_path).stat().st_size}
 
 
 def split_stereo(frames, layout):

@@ -3,6 +3,11 @@
 Builds the repository's native/scanner.cpp with g++ on first use into
 this package's git-ignored csrc/build/ (utils/build.py), packs the codec tables into the blob layout the C++ side expects, and wraps
 scans into FramePlan objects identical to the Python planner's output.
+
+A copy of the JAX package's ``utils/native.py`` apart from the build
+directory and the row caps of ``scan``'s outputs: the JAX package's are a
+fixed 8,192 rows, which a 640x480 I-frame's intra ops overflow (the scan
+then fails); here they grow with the frame to bounds no frame can pass.
 """
 from __future__ import annotations
 
@@ -104,6 +109,13 @@ class NativePlanner:
             self.stride = 512
         else:
             self.stride = 1024
+        # scan()'s row caps: a luma MC leaf covers at least 2x2 pixels, a
+        # residual or intra op at least 4x4 of the Y+UV plane (twice that
+        # allows for pass-through ops over written blocks)
+        blocks = (self.height + self.height // 2) * self.stride // 16
+        self.mc_cap = max(self.MC_CAP, self.height * self.stride // 4)
+        self.res_cap = max(self.RES_CAP, 2 * blocks)
+        self.intra_cap = max(self.INTRA_CAP, 2 * blocks)
         blob = _tables_blob()
         self._lib = _load()
         self._ctx = self._lib.scanner_create(
@@ -228,11 +240,11 @@ class NativePlanner:
 
     def scan(self, packet: bytes) -> FramePlan:
         H, S = self.height, self.stride
-        mc = np.zeros((self.MC_CAP, 7), np.int32)
-        resid = np.zeros((self.RES_CAP, 4), np.int32)
-        resid_coef = np.zeros((self.RES_CAP, 64), np.int32)
-        intra = np.zeros((self.INTRA_CAP, 11), np.int32)
-        intra_coef = np.zeros((self.INTRA_CAP, 64), np.int32)
+        mc = np.zeros((self.mc_cap, 7), np.int32)
+        resid = np.zeros((self.res_cap, 4), np.int32)
+        resid_coef = np.zeros((self.res_cap, 64), np.int32)
+        intra = np.zeros((self.intra_cap, 11), np.int32)
+        intra_coef = np.zeros((self.intra_cap, 64), np.int32)
         seq_y = np.zeros((H // 4, S // 4), np.int32)
         seq_uv = np.zeros((H // 8, S // 4), np.int32)
         meta = np.zeros(5, np.int32)
@@ -242,9 +254,9 @@ class NativePlanner:
 
         consumed = self._lib.scanner_scan(
             self._ctx, packet, len(packet),
-            p(mc), self.MC_CAP,
-            p(resid), p(resid_coef), self.RES_CAP,
-            p(intra), p(intra_coef), self.INTRA_CAP,
+            p(mc), self.mc_cap,
+            p(resid), p(resid_coef), self.res_cap,
+            p(intra), p(intra_coef), self.intra_cap,
             p(seq_y), p(seq_uv), p(meta))
         if consumed < 0 or meta[4]:
             raise ValueError("native scan failed (malformed stream or "

@@ -170,3 +170,42 @@ def test_cuda_kernel_matches_plain_on_edge_gops(cuda, source):
                                 s)
     np.testing.assert_array_equal(frames_c.cpu().numpy(), frames_p.numpy())
     np.testing.assert_array_equal(ring_c.cpu().numpy(), ring_p.numpy())
+
+
+@pytest.mark.cuda
+def test_cuda_wavefront_batch_matches_cpu(cuda):
+    """The wavefront engine (plain torch) on the card == on the CPU."""
+    from mobiclipdecoder_tpu_torch.parallel.batch import BatchVideoDecoder
+    frames = _frames(MobiclipVersion.MODS_DS, (5, 6, 7), 4)
+    got = BatchVideoDecoder(W, H, MobiclipVersion.MODS_DS, batch=3,
+                            device=cuda).decode_gop(frames)
+    want = BatchVideoDecoder(W, H, MobiclipVersion.MODS_DS, batch=3,
+                             device="cpu").decode_gop(frames)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.cuda
+def test_cuda_sad_volume_and_audio_match_cpu(cuda):
+    from mobiclipdecoder_tpu_torch.ops.adpcm import decode_packets
+    from mobiclipdecoder_tpu_torch.ops.audio_lpc import fastaudio_synth
+    from mobiclipdecoder_tpu_torch.ops.mesearch import SadVolume
+    rng = np.random.default_rng(4)
+    cur = rng.integers(0, 256, (H, W)).astype(np.uint8)
+    refs = [rng.integers(0, 256, (H, W)).astype(np.uint8) for _ in range(3)]
+    np.testing.assert_array_equal(
+        SadVolume(cur, refs, range_=8, device=cuda).vol,
+        SadVolume(cur, refs, range_=8, device="cpu").vol)
+    body = rng.integers(0, 256, (6, 300), dtype=np.uint8)
+    i0 = rng.integers(0, 89, 6).astype(np.int32)
+    l0 = rng.integers(-32768, 32768, 6).astype(np.int32)
+    np.testing.assert_array_equal(
+        decode_packets(body, i0, l0, device=cuda),
+        decode_packets(body, i0, l0, device="cpu"))
+    args = [rng.integers(-2**20, 2**20, (4, 32)),
+            rng.integers(-32767, 32768, (4, 8)),
+            rng.integers(-2**24, 2**24, (4, 8)),
+            rng.integers(-2**24, 2**24, 4)]
+    args = [torch.from_numpy(a.astype(np.int32)) for a in args]
+    for a, b in zip(fastaudio_synth(*(a.to(cuda) for a in args)),
+                    fastaudio_synth(*args)):
+        np.testing.assert_array_equal(a.cpu().numpy(), b.numpy())

@@ -1,7 +1,8 @@
 """The port's transcoder and CLI (mobiclipdecoder_tpu_torch/runtime/
 transcode.py, __main__.py) against the JAX package's, at 64x48 on the CPU.
 
-The port's engines are "oracle", "cuda" and "cpu"; here "cpu" runs the
+The port's engines are "oracle", "cuda", "cpu", "wavefront" and
+"wavefront-cpu" (tests/test_torch_wavefront.py); here "cpu" runs the
 port's decoder with the plain PyTorch executor.  Frames and PCM must equal
 those of the JAX package's "oracle" engine and, where named, its "tpu"
 engine (the Pallas executor in interpret mode).
@@ -222,8 +223,8 @@ def test_cli_info_and_play(tmp_path, capsys):
 def test_jax_module_keeps_its_own_factory():
     """The port's transcoder is a module of its own with its own decoder
     factory; the JAX package's transcoder still builds the JAX engines.
-    The JAX engine names raise in the port, and so does the encoder, which
-    is not ported."""
+    The JAX engine names raise in the port; its own wavefront engine and
+    encoder are the port's modules."""
     assert pt is not jt
     assert pt._make_video_decoder.__module__ == (
         "mobiclipdecoder_tpu_torch.runtime.transcode")
@@ -237,8 +238,16 @@ def test_jax_module_keeps_its_own_factory():
     for eng in ("tpu", "tpu-xla", "gpu"):
         with pytest.raises(ValueError, match=eng):
             pt._make_video_decoder(64, 48, MobiclipVersion.MODS_DS, eng)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        pt.encode_y4m_to_moflex("in.y4m", "out.moflex")
+    from mobiclipdecoder_tpu_torch.models.pipeline import (
+        WavefrontVideoDecoder)
+    assert isinstance(pt._make_video_decoder(64, 48, MobiclipVersion.MODS_DS,
+                                             "wavefront-cpu"),
+                      WavefrontVideoDecoder)
+    assert WavefrontVideoDecoder.__module__.startswith(
+        "mobiclipdecoder_tpu_torch.")
+    from mobiclipdecoder_tpu_torch.models import encoder
+    assert encoder.SadVolume.__module__ == (
+        "mobiclipdecoder_tpu_torch.ops.mesearch")
 
 
 def test_engine_cuda_raises_without_gpu(tmp_path, monkeypatch):
