@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--kernel-only]
+    python3 chip_smoke.py [--kernel-only | --multi-device]
 
 Builds the executor kernel from mobiclipdecoder_tpu_torch/csrc with nvcc,
 holds it against its plain PyTorch version, drives the main path (the
@@ -36,7 +36,21 @@ and the user's entry points:
                R=5;
   [audio]      IMA ADPCM scans on the card (64 channels x 1 s) == the host
                decoder, FastAudioBatchDecoder on the card (16 channels x 50
-               packets) == the host decoders; the ms of each.
+               packets) == the host decoders; the ms of each;
+  [sharded]    decode_gop_fused_sharded over every visible GPU (cuda:0
+               twice on a one-card machine): the main path's 8 streams x 2
+               GOPs == the unsharded executor's frames and ring, and the
+               400x240 and 640x480 24-frame GOPs doubled to B=2 the same
+               way; ms per GOP, sharded against one launch on cuda:0;
+  [entry]      graft_entry.entry("cuda") == the oracle's I-frame, and
+               dryrun_multichip over the same devices (every sharded
+               result == one device);
+  [warm]       tools/warm_kernels at the three geometries, every library
+               already built: the seconds of a warm call;
+  [multi_gpu]  with two or more GPUs, run_worker in two spawned processes
+               through init_distributed (NCCL): each rank on its own GPU,
+               its shards == the oracle worker's; with one GPU it prints
+               that it was skipped.
 
 The CPU references of [wavefront] and [encode] (the oracle of streams 2-7,
 the encoder with device="cpu") run in a pool of spawned processes, started
@@ -44,12 +58,15 @@ when [wavefront] starts and shut down after [encode].
 
 Every phase raises on a mismatch.  Before each run of a user path that
 reaches the executor its launch counters are set to 0, and they are read
-after it; they
+after it (the kernels line gives each kernel's launches by path); they
 also show which form of the kernel ran (the working plane in shared
 memory at 256x192 and 400x240, in global memory at 640x480).
 ``--kernel-only`` stops after the build (whose ptxas report it prints) and
 the kernel-vs-plain checks at every geometry, as a GOP and at F=1, and
-prints no result line.
+prints no result line.  ``--multi-device`` runs the build, the main
+path's decode and then only [sharded], [entry] and [multi_gpu] (on a
+machine with several GPUs: the sharded paths across cards, a launch for
+another card refused, two NCCL ranks), and prints no result line.
 
 Prints one line per phase with its seconds, then a JSON line describing
 each kernel, the card's name and power limit, and last a JSON line
@@ -1041,8 +1058,314 @@ def audio_phase(smi) -> dict:
     return res
 
 
+# ------------------------------------------- sharded, entry, warm, multi-GPU
+def shard_devices() -> list[str]:
+    """The devices the sharded phases split over: every visible GPU (the
+    largest power of two of them, so that 8 streams split evenly), or
+    cuda:0 twice on a one-card machine."""
+    n = torch.cuda.device_count()
+    k = max(d for d in (1, 2, 4, 8) if d <= n)
+    return ["cuda:0", "cuda:0"] if k == 1 else [f"cuda:{i}" for i in range(k)]
+
+
+def sync_all() -> None:
+    for k in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(k)
+
+
+def sharded_call_ms(devices, arrays, F: int, h: int, S: int,
+                    reps: int = 5) -> float:
+    """Host ms per decode_gop_fused_sharded call over ``devices`` (inputs
+    already on the first device; every card synchronized at the end),
+    mean of ``reps`` after a warm-up call."""
+    from mobiclipdecoder_tpu_torch.ops.vmem_engine import (
+        decode_gop_fused_sharded, sharded_rings)
+    rings = sharded_rings(devices, arrays[0].shape[0], h, S)
+    rings, _y = decode_gop_fused_sharded(devices, rings, *arrays, F, h, S)
+    sync_all()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        rings, _y = decode_gop_fused_sharded(devices, rings, *arrays, F, h,
+                                             S)
+    sync_all()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def sharded_case(label, devices, gops_packed, h, S, want_frames, want_ring,
+                 smi) -> dict:
+    """GOPs (packed host arrays, ring carried across) through
+    decode_gop_fused_sharded over ``devices``, counted; frames and ring
+    must equal the unsharded ones exactly.  Then its ms per GOP against
+    the same call on the first device alone."""
+    from mobiclipdecoder_tpu_torch.ops.vmem_engine import (
+        decode_gop_fused_sharded, gather_shards, sharded_rings)
+    from mobiclipdecoder_tpu_torch.utils.device import check_device
+    nb = gops_packed[0][0].shape[0]
+    nf = len(want_frames[0])
+    rings = sharded_rings(devices, nb, h, S)
+    zero_counts()
+    got = []
+    for arrays in gops_packed:
+        rings, yuvs = decode_gop_fused_sharded(devices, rings, *arrays, nf, h,
+                                               S)
+        if [y.device for y in yuvs] != [check_device(d) for d in devices]:
+            raise AssertionError(f"[sharded] {label}: results on "
+                                 f"{[y.device for y in yuvs]}")
+        got.append(gather_shards(yuvs))
+    sync_all()
+    launches = read_counts()
+    planes = check_plane_form(f"sharded {label}", h, S)
+    if launches != (len(devices) * len(gops_packed), 0):
+        raise AssertionError(f"[sharded] {label}: launches {launches}")
+    for g, (a, b) in enumerate(zip(got, want_frames)):
+        if a.shape != b.shape or not (a == b).all():
+            raise AssertionError(f"[sharded] {label} GOP {g}: frames differ "
+                                 f"from the unsharded executor's")
+    if not np.array_equal(gather_shards(rings, 0), want_ring):
+        raise AssertionError(f"[sharded] {label}: ring differs from the "
+                             f"unsharded executor's")
+    on_card = [torch.from_numpy(a).cuda() for a in gops_packed[0]]
+    ms = sharded_call_ms(devices, on_card, nf, h, S)
+    ms_one = sharded_call_ms(devices[:1], on_card, nf, h, S)
+    names = ",".join(devices)
+    log(f"[sharded] {label} B={nb} F={nf} over [{names}]: "
+        f"{len(gops_packed)} GOPs, frames and ring == the unsharded "
+        f"executor's; launches {launches[0]} (plane shared/global "
+        f"{planes[0]}/{planes[1]}); ms per GOP (prologue + executor, inputs "
+        f"on cuda:0, host clock after syncing every card, mean of 5): "
+        f"sharded {ms:.3f} vs one launch on cuda:0 {ms_one:.3f} | {smi}")
+    return {"devices": list(devices), "B": nb, "F": nf,
+            "launches": launches[0], "planes": planes, "ms_per_gop": ms,
+            "ms_per_gop_one_device": ms_one}
+
+
+def launch_guard(smi) -> int:
+    """With two or more cards: the executor's launch given tensors and a
+    stream of cuda:1 while cuda:0 is current must be refused
+    (cudaErrorInvalidDevice), not run on cuda:0.  Returns its code."""
+    from mobiclipdecoder_tpu_torch import state
+    from mobiclipdecoder_tpu_torch.ops import executor
+    from mobiclipdecoder_tpu_torch.ops.packing import CHUNK
+    d1 = torch.device("cuda", 1)
+    ops = torch.zeros((1, 1, CHUNK, 4), dtype=torch.int32, device=d1)
+    resid = torch.zeros((1, 1, CHUNK, 64), dtype=torch.int32, device=d1)
+    ring = torch.zeros(state.ring_shape(1, 48, 256), dtype=torch.uint8,
+                       device=d1)
+    frames = torch.empty_like(ring[:, 0])[None]
+    tabs = state.kernel_tables(d1)
+    with torch.cuda.device(0):
+        rc = executor._load().mobi_gop_executor_launch(
+            ops.data_ptr(), resid.data_ptr(), ring.data_ptr(),
+            frames.data_ptr(), tabs.data_ptr(), 1, 1, 1, 48, 256, 1, 1,
+            torch.cuda.current_stream(d1).cuda_stream)
+    if rc != 101:
+        raise AssertionError(f"[sharded] a launch for cuda:1 from cuda:0 "
+                             f"returned {rc}, not cudaErrorInvalidDevice")
+    log(f"[sharded] the executor's launch for cuda:1 tensors while cuda:0 "
+        f"is current is refused: CUDA error {rc} | {smi}")
+    return rc
+
+
+def sharded_phase(ds, gops, k1_outs, main_ring, geo, smi) -> dict:
+    """[sharded]: the main path's 8 streams x 2 GOPs through
+    decode_gop_fused_sharded == the unsharded K1 output (frames and ring);
+    the 400x240 and 640x480 GOPs of [geometry] with their stream doubled
+    (B=2) the same way, against one launch on cuda:0."""
+    from mobiclipdecoder_tpu_torch.ops.vmem_engine import (_decode_gop_fused,
+                                                           sharded_rings)
+    devs = shard_devices()
+    res = {}
+    with phase("sharded"):
+        packed = [packed_gop(ds, gop, (W, H)) for gop in gops]
+        res[f"{W}x{H}"] = sharded_case(f"{W}x{H}", devs, packed, H, 256,
+                                       k1_outs, main_ring, smi)
+        for size in WIDE:
+            label = f"{size[0]}x{size[1]}"
+            h, S = size[1], width_stride(size[0])
+            arrays = [np.concatenate([a, a]) for a in geo[label]["packed"]]
+            ring, yuv = _decode_gop_fused(
+                sharded_rings(devs[:1], 2, h, S)[0],
+                *(torch.from_numpy(a).cuda() for a in arrays), F, h, S)
+            res[label] = sharded_case(label, devs[:2], [arrays], h, S,
+                                      [yuv.cpu().numpy()],
+                                      ring.cpu().numpy(), smi)
+        if torch.cuda.device_count() > 1:
+            res["refused_launch_rc"] = launch_guard(smi)
+    return res
+
+
+def multi_device_run(ds, mf, gops, smi, t_start) -> int:
+    """``--multi-device``: the main path's decode (the unsharded K1
+    frames and ring), then [sharded], [entry] and [multi_gpu] alone."""
+    from mobiclipdecoder_tpu_torch.ops.vmem_engine import VmemBatchDecoder
+    dec = VmemBatchDecoder(W, H, ds, batch=B, native=True, device="cuda")
+    outs = list(dec.decode_gops(iter(gops)))
+    geo = {f"{w}x{h}": {"packed": packed_gop(
+        mf, synth_gops(mf, [7], 1, F, (w, h))[0], (w, h))} for w, h in WIDE}
+    sharded_phase(ds, gops, outs, dec.ring.cpu().numpy(), geo, smi)
+    entry_phase(ds, smi)
+    multi_gpu_phase(smi)
+    log(f"[total] {time.perf_counter() - t_start:.1f} s; --multi-device: "
+        f"no result line")
+    return 0
+
+
+def entry_phase(ds, smi) -> dict:
+    """[entry]: the port's entry("cuda") == the oracle's I-frame; then
+    dryrun_multichip over shard_devices(), counted."""
+    from mobiclipdecoder_tpu_torch.graft_entry import dryrun_multichip, entry
+    from mobiclipdecoder_tpu_torch.testing.synth import StreamSynthesizer
+    with phase("entry"):
+        fn, args = entry("cuda")
+        got = fn(*args)
+        torch.cuda.synchronize()
+        pkt = StreamSynthesizer(64, 48, ds, seed=0).iframe(0x18)
+        exp = oracle_frames(ds, [pkt], (64, 48)).astype(np.int32)
+        if tuple(got.shape) != (1,) + exp.shape[1:] or not (
+                got.cpu().numpy() == exp).all():
+            raise AssertionError("[entry] entry('cuda') differs from the "
+                                 "oracle's I-frame")
+        devs = shard_devices()
+        zero_counts()
+        t0 = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            dryrun_multichip(len(devs), devices=devs)
+        sync_all()
+        t_dry = time.perf_counter() - t0
+        launches = read_counts()
+        if launches[0] < 1 or launches[1] < 1:
+            raise AssertionError(f"[entry] dryrun_multichip launches "
+                                 f"{launches}")
+        line = buf.getvalue().strip()
+        log(f"[entry] entry('cuda') fn(*args) {tuple(got.shape)} int32 == "
+            f"the oracle's 64x48 I-frame; {line} ({t_dry:.1f} s; launches "
+            f"whole-GOP {launches[0]}, single-frame {launches[1]}) | {smi}")
+    return {"dryrun_s": t_dry, "launches": launches, "devices": devs}
+
+
+def warm_phase(smi) -> dict:
+    """[warm]: tools/warm_kernels at the three geometries with nothing
+    deleted (every library already built): a warm call, counted per
+    geometry."""
+    from mobiclipdecoder_tpu_torch.tools import warm_kernels
+    res = {}
+    with phase("warm"):
+        t0 = time.perf_counter()
+        for g in (f"{W}x{H}", "400x240", "640x480"):
+            zero_counts()
+            r = warm_kernels.warm([g], batch=2, frames=8, device="cuda")
+            sync_all()
+            launches = read_counts()
+            if launches != (1, min(2, r[g]["frames"])):
+                raise AssertionError(f"[warm] {g}: launches {launches}")
+            res[g] = {"gop_s": r[g]["gop_s"], "frames_s": r[g]["frames_s"],
+                      "launches": launches,
+                      "builds": {k: v["s"] for k, v in r["builds"].items()}}
+        total = time.perf_counter() - t0
+        log(f"[warm] warm_kernels {' '.join(res)} --batch 2 --frames 8 with "
+            f"every library built: {total:.1f} s in all (synthesis "
+            f"included); first launches per geometry: "
+            + ", ".join(f"{g} GOP {v['gop_s']:.3f} s + 2 frames "
+                        f"{v['frames_s']:.3f} s" for g, v in res.items())
+            + f" | {smi}")
+    return {"total_s": total, **res}
+
+
+def multi_gpu_worker(coord: str, pid: int, nproc: int, files: list,
+                     out_dir: str, result: str) -> None:
+    """One rank of [multi_gpu]: init_distributed (NCCL, pinned to its
+    GPU), run_worker(engine="cuda"), then where its memory went."""
+    import torch.distributed as dist
+    from mobiclipdecoder_tpu_torch.ops import executor
+    from mobiclipdecoder_tpu_torch.parallel.distributed import (
+        init_distributed, run_worker)
+    rank, world = init_distributed(coord, nproc, pid)
+    stats = run_worker(files, out_dir, worker_id=rank, n_workers=world,
+                       engine="cuda", batch=B)
+    dev = torch.cuda.current_device()
+    torch.cuda.synchronize(dev)
+    stats.update(rank=rank, device=dev, launches=executor.launches,
+                 backend=dist.get_backend(),
+                 peak_bytes=[torch.cuda.max_memory_allocated(k)
+                             for k in range(torch.cuda.device_count())])
+    dist.barrier(device_ids=[dev])
+    dist.destroy_process_group()
+    Path(result).write_text(json.dumps(stats))
+
+
+def multi_gpu_phase(smi) -> dict | None:
+    """[multi_gpu]: with two or more GPUs, run_worker in two spawned
+    processes through init_distributed: each rank decodes on its own GPU
+    (all its device memory there), and the shards equal the oracle
+    worker's.  With one GPU it is skipped."""
+    import socket
+    from mobiclipdecoder_tpu_torch.parallel.distributed import run_worker
+    n = torch.cuda.device_count()
+    if n < 2:
+        log(f"[multi_gpu] skipped: {n} device")
+        return None
+    ctx = multiprocessing.get_context("spawn")
+    with phase("multi_gpu"), tempfile.TemporaryDirectory() as d:
+        tmp = Path(d)
+        files = []
+        for i in range(4):
+            p = tmp / f"m{i}.mods"
+            p.write_bytes(mods_container(2 * BATCH_GOP, 50 + i,
+                                         (0, BATCH_GOP)))
+            files.append(str(p))
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        procs = [ctx.Process(target=multi_gpu_worker, args=(
+            f"127.0.0.1:{port}", pid, 2, files, str(tmp / "cuda"),
+            str(tmp / f"rank{pid}.json"))) for pid in range(2)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        try:
+            for p in procs:
+                p.join(600)
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        wall = time.perf_counter() - t0
+        if any(p.exitcode != 0 for p in procs):
+            raise AssertionError(f"[multi_gpu] exit codes "
+                                 f"{[p.exitcode for p in procs]}")
+        ranks = [json.loads((tmp / f"rank{k}.json").read_text())
+                 for k in range(2)]
+        for k, r in enumerate(ranks):
+            own = r["peak_bytes"][k]
+            other = sum(b for j, b in enumerate(r["peak_bytes"]) if j != k)
+            if (r["rank"], r["device"], r["backend"]) != (k, k, "nccl") or (
+                    r["launches"] < 1 or own <= 0 or other != 0
+                    or r["shards_decoded"] < 1):
+                raise AssertionError(f"[multi_gpu] rank {k}: {r}")
+        run_worker(files, tmp / "oracle", engine="oracle")
+        names = sorted(p.name for p in (tmp / "oracle").glob("*.npy"))
+        if names != sorted(p.name for p in (tmp / "cuda").glob("*.npy")):
+            raise AssertionError(f"[multi_gpu] shard files {names}")
+        for name in names:
+            if not np.array_equal(np.load(tmp / "cuda" / name),
+                                  np.load(tmp / "oracle" / name)):
+                raise AssertionError(f"[multi_gpu] {name} differs from the "
+                                     f"oracle")
+        log(f"[multi_gpu] 2 processes, NCCL, rank k pinned to cuda:k: "
+            + "; ".join(f"rank {r['rank']} on cuda:{r['device']}, "
+                        f"{r['shards_decoded']} shards, {r['frames']} "
+                        f"frames, {r['launches']} launches, peak bytes by "
+                        f"device {r['peak_bytes']}" for r in ranks)
+            + f"; all {len(names)} shards == oracle worker; {wall:.1f} s "
+            f"with process start | {smi}")
+    return {"ranks": ranks, "wall_s": wall}
+
+
 def main(argv=None) -> int:
-    kernel_only = "--kernel-only" in (sys.argv[1:] if argv is None else argv)
+    args = sys.argv[1:] if argv is None else argv
+    kernel_only = "--kernel-only" in args
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "false); there is no CPU path", file=sys.stderr)
@@ -1081,6 +1404,8 @@ def main(argv=None) -> int:
     gops = synth_gops(ds, range(B), NGOPS, F)
     log(f"[workload] synthesized {B} DS streams x {NGOPS} GOPs x {F} frames "
         f"in {time.perf_counter() - t0:.1f} s")
+    if "--multi-device" in args:
+        return multi_device_run(ds, mf, gops, smi, t_start)
 
     # 3. kernel vs plain
     with phase("kernel_vs_plain"):
@@ -1235,7 +1560,7 @@ def main(argv=None) -> int:
             geo[label] = {"err": g_err, "ms": g_k_ms, "plain_ms": g_plain_ms,
                           "b8_f24_ms": b8_ms, "chunks": nct_used,
                           "bucket": nct, "facts": g_k, "b8_f24": b8_k,
-                          "b_sweep": g_sweep}
+                          "b_sweep": g_sweep, "packed": (ops, coefs, sizes)}
             log(f"[geometry] {label} stride {width_stride(size[0])}: kernel "
                 f"== plain (B=1 F=4: kernel {g_k_ms:.3f} ms, mean of 10, vs "
                 f"plain {g_plain_ms:.1f} ms on the host CPU); format "
@@ -1371,6 +1696,10 @@ def main(argv=None) -> int:
             trans_dir.cleanup()
         encoded = encode_phase(mf, enc_sizes, enc_futs, smi)
     audio = audio_phase(smi)
+    sharded = sharded_phase(ds, gops, outs, dec.ring.cpu().numpy(), geo, smi)
+    entry_res = entry_phase(ds, smi)
+    warm = warm_phase(smi)
+    multi_gpu = multi_gpu_phase(smi)
 
     src = "mobiclipdecoder_tpu_torch/csrc/gop_executor.cu"
     k1 = "mobiclipdecoder_tpu/ops/vmem_engine.py:1286"
@@ -1380,9 +1709,26 @@ def main(argv=None) -> int:
                                         "ns_per_op")}
 
     # no single PyTorch call computes the executor: library_ms is null
+    # launches of each path that reaches the kernel, each counted from 0
+    k1_paths = {f"{W}x{H}": {"main_path": launches,
+                             "sharded": sharded[f"{W}x{H}"]["launches"],
+                             "warm": warm[f"{W}x{H}"]["launches"][0],
+                             "dryrun_multichip_32x32":
+                                 entry_res["launches"][0]}}
+    for (label, _g), cname in zip(geo.items(),
+                                  ("moflex_400x240", "moc5_640x480")):
+        k1_paths[label] = {"transcode": trans[cname]["launches"][0],
+                           "sharded": sharded[label]["launches"],
+                           "warm": warm[label]["launches"][0]}
+    k2_paths = {"per_frame": pf_launches[1],
+                "dryrun_multichip_32x32": entry_res["launches"][1],
+                **{f"warm_{g}": warm[g]["launches"][1]
+                   for g in (f"{W}x{H}", "400x240", "640x480")}}
     kernels = [{
         "name": "gop_executor", "geometry": "256x192", "route": "cuda",
-        "source": src, "replaces": k1, "launches": launches,
+        "source": src, "replaces": k1,
+        "launches": sum(k1_paths[f"{W}x{H}"].values()),
+        "launches_by_path": k1_paths[f"{W}x{H}"],
         "plane_launches": main_planes,
         "max_abs_err": err, "ms": k_ms, "plain_ms": plain_ms,
         **facts(main_k), "library_ms": None,
@@ -1393,7 +1739,8 @@ def main(argv=None) -> int:
         kernels.append({
             "name": "gop_executor", "geometry": label, "route": "cuda",
             "source": src, "replaces": k1,
-            "launches": trans[cname]["launches"][0],
+            "launches": sum(k1_paths[label].values()),
+            "launches_by_path": k1_paths[label],
             "plane_launches": trans[cname]["planes"],
             "max_abs_err": g["err"], "ms": g["ms"],
             "plain_ms": g["plain_ms"], **facts(g["facts"]),
@@ -1405,7 +1752,7 @@ def main(argv=None) -> int:
     kernels.append({
         "name": "gop_executor_f1", "route": "cuda", "source": src,
         "replaces": "mobiclipdecoder_tpu/ops/vmem_engine.py:1200",
-        "launches": pf_launches[1],
+        "launches": sum(k2_paths.values()), "launches_by_path": k2_paths,
         "max_abs_err": max(v["err"] for v in k2.values()),
         "ms": k2[f"{W}x{H}"]["ms"], "plain_ms": k2[f"{W}x{H}"]["plain_ms"],
         **facts(k2[f"{W}x{H}"]["facts"]), "library_ms": None,
@@ -1415,11 +1762,14 @@ def main(argv=None) -> int:
                             "fixed_ms_per_frame": v["fixed_ms_per_frame"],
                             **facts(v["facts"])} for k, v in k2.items()}})
     for kern in kernels:
-        if kern["launches"] < 1:
+        if min(kern["launches_by_path"].values()) < 1:
             raise AssertionError(f"{kern['name']} {kern.get('geometry')}: "
-                                 f"its path launched it no time")
+                                 f"a path launched it no time: "
+                                 f"{kern['launches_by_path']}")
     log("[paths] " + json.dumps({"wavefront": wavefront, "encode": encoded,
-                                 "audio": audio}))
+                                 "audio": audio, "sharded": sharded,
+                                 "entry": entry_res, "warm": warm,
+                                 "multi_gpu": multi_gpu}))
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(smi)

@@ -19,9 +19,14 @@ Layers, from the entry point down:
   runtime/transcode.py the transcoder with the port's decoders (engines
                        oracle, cuda, cpu, wavefront, wavefront-cpu) and
                        encode_y4m_to_moflex
-  parallel/distributed.py  corpus worker (GOP shards, lockstep batches)
+  graft_entry.py       entry() and dryrun_multichip(n): the port's
+                       counterpart of the repository's __graft_entry__.py
+  tools/warm_kernels.py  builds and first launches before serving
+  parallel/distributed.py  corpus worker (GOP shards, lockstep batches),
+                       one process per GPU (init_distributed pins it)
   ops/vmem_engine.py   VmemBatchDecoder / VmemVideoDecoder (host scan,
-                       dispatch, download)
+                       dispatch, download); decode_gop_fused_sharded /
+                       decode_round_sharded over a device list
   ops/packing.py       numpy packing of scanned op streams into one blob
   ops/prologue.py      blob -> (ops, coefs, sizes) on the device
   ops/residuals.py     IDCT pre-pass (plain torch)
@@ -31,11 +36,13 @@ Layers, from the entry point down:
   models/pipeline.py   the wavefront engine: WavefrontVideoDecoder, one
                        frame as MC, residuals and intra dependency levels
                        in batched torch (ops/idct.py: its IDCTs)
-  parallel/batch.py    BatchVideoDecoder: B streams on the wavefront engine
+  parallel/batch.py    BatchVideoDecoder: B streams on the wavefront engine,
+                       on one device or split over several
   models/encoder.py    MobiclipEncoder (host), whose motion search takes
                        its full-search SAD volume from ops/mesearch.py
   ops/adpcm.py         IMA ADPCM as two log-step scans (batched torch)
   ops/audio_lpc.py     FastAudioBatchDecoder: the LPC lattice over channels
-  utils/device.py      the device check every entry point makes
+  utils/device.py      the device check every entry point makes (a bare
+                       "cuda" resolved to the current device's index)
 """
 __version__ = "0.1.0"

@@ -55,10 +55,19 @@ static int mobi_launch(const MobiArgs& a, int bytes, cudaStream_t st) {
 // shared memory when `smem_plane` is set; allocates nothing and returns a
 // CUDA error code (0 on success).  A block that needs more shared memory
 // than the card grants is refused here, never run in the other form.
+// `device` is the card the tensors and the stream belong to: this
+// library's runtime launches on (and sets the kernel's shared-memory
+// attribute for) the device current on the calling thread, so a launch
+// from any other device is refused instead of reaching across cards.
 extern "C" int mobi_gop_executor_launch(const int32_t* ops, const int32_t* resid,
                                         uint8_t* ring, uint8_t* frames,
                                         const uint8_t* tabs, int B, int nct, int F,
-                                        int H, int S, int smem_plane, void* stream) {
+                                        int H, int S, int smem_plane, int device,
+                                        void* stream) {
+  int current = -1;
+  const cudaError_t de = cudaGetDevice(&current);
+  if (de != cudaSuccess) return (int)de;
+  if (current != device) return (int)cudaErrorInvalidDevice;
   MobiArgs a;
   a.ops = ops;
   a.resid = resid;

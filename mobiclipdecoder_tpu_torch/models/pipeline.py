@@ -31,7 +31,7 @@ import torch
 
 from ..ops.idct import idct4, idct8
 from ..ops.intra_tables import AVG2, AVG3, COPY, DC, KIND, PASS, TAPS
-from ..utils.device import check_device
+from ..utils.device import check_device, indexed
 from .oracle_video import MobiclipVersion
 from .plan import FramePlan, PlanningDecoder
 
@@ -187,8 +187,10 @@ _TABLES: dict[str, tuple[torch.Tensor, torch.Tensor]] = {}
 
 
 def _intra_tables(device) -> tuple[torch.Tensor, torch.Tensor]:
-    """(KIND (20, 256), TAPS (20, 256, 3)) int64 on ``device``."""
-    key = str(torch.device(device))
+    """(KIND (20, 256), TAPS (20, 256, 3)) int64 on ``device`` (cached
+    per indexed device)."""
+    device = indexed(device)
+    key = str(device)
     if key not in _TABLES:
         _TABLES[key] = (torch.from_numpy(KIND).long().to(device),
                         torch.from_numpy(TAPS).long().to(device))

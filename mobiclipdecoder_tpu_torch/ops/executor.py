@@ -57,7 +57,8 @@ def _load():
         lib = build.load("gop_executor", ["gop_executor.cu"], "nvcc")
         lib.mobi_gop_executor_launch.restype = ctypes.c_int
         lib.mobi_gop_executor_launch.argtypes = [_P, _P, _P, _P, _P,
-                                                 _I, _I, _I, _I, _I, _I, _P]
+                                                 _I, _I, _I, _I, _I, _I, _I,
+                                                 _P]
         _lib = lib
     return _lib
 
@@ -128,16 +129,18 @@ def run_gop(ops: torch.Tensor, resid: torch.Tensor, ring: torch.Tensor,
         raise ValueError(f"no executor for device {ops.device}")
     lib = _load()
     smem_plane = plane_in_smem(H, S)
+    # the library's runtime launches on the device current on this thread;
+    # the launch checks that it is ops.device
     with torch.cuda.device(ops.device):
         stream = torch.cuda.current_stream(ops.device).cuda_stream
         rc = lib.mobi_gop_executor_launch(
             ops.data_ptr(), resid.data_ptr(), ring.data_ptr(),
             frames.data_ptr(), tabs.data_ptr(), B, nct, F, H, S,
-            int(smem_plane), stream)
+            int(smem_plane), ops.device.index, stream)
     if rc != 0:
-        raise RuntimeError(f"gop executor launch failed: CUDA error {rc} "
-                           f"({smem_bytes(H, S, smem_plane)} B of shared "
-                           f"memory per block)")
+        raise RuntimeError(f"gop executor launch on {ops.device} failed: "
+                           f"CUDA error {rc} ({smem_bytes(H, S, smem_plane)} "
+                           f"B of shared memory per block)")
     if F == 1:
         frame_launches += 1
     else:

@@ -10,7 +10,9 @@ it, ``ops/residuals.py`` runs the IDCT pre-pass, and ONE executor launch
 6-slot reference ring, which stays on the device across GOPs.
 
 Every decode, single frames included, goes through this fused path (a
-single frame is a GOP of one).
+single frame is a GOP of one).  ``decode_gop_fused_sharded`` and
+``decode_round_sharded`` split the stream batch over a list of devices,
+one executor launch per shard (the JAX package's shard_map paths).
 """
 from __future__ import annotations
 
@@ -55,6 +57,79 @@ def _decode_gop_fused_sblob(ring, blob, F: int, nct: int, nnzb: int,
     """Sparse-upload whole GOP: one blob, one executor launch."""
     ops, coefs, sizes = unpack_gop_blob(blob, ring.shape[0], nct, nnzb)
     return _decode_gop_fused(ring, ops, coefs, sizes, F, H, S)
+
+
+def _shard(a, k: int, per: int, device: torch.device) -> torch.Tensor:
+    """Rows k*per .. (k+1)*per of a host array or tensor, on ``device``."""
+    t = a[k * per:(k + 1) * per]
+    if isinstance(t, np.ndarray):
+        t = torch.from_numpy(np.ascontiguousarray(t))
+    return t.to(device)
+
+
+def sharded_rings(devices, batch: int, height: int,
+                  stride: int) -> list[torch.Tensor]:
+    """Zero rings for ``batch`` streams split into equal shards over
+    ``devices``: one (batch / n, 6, R, SP) uint8 ring per device."""
+    n = len(devices)
+    if n < 1 or batch % n:
+        raise ValueError(f"{batch} streams do not split over {n} devices")
+    return [torch.zeros(ring_shape(batch // n, height, stride),
+                        dtype=torch.uint8, device=check_device(d))
+            for d in devices]
+
+
+def decode_gop_fused_sharded(devices, rings, ops, coefs, sizes, F: int,
+                             H: int, S: int):
+    """Whole-GOP decode with the stream batch split over ``devices``: the
+    port of the JAX package's ``decode_gop_fused_sharded`` (its shard_map
+    over a mesh's "data" axis).
+
+    ops (B, NCT, CHUNK, 4), coefs (B, NCT, CHUNK, 64), sizes (B, NCT,
+    CHUNK) are host arrays or tensors; B splits into ``len(devices)``
+    equal contiguous shards (B not divisible by the count raises), and
+    ``rings[k]`` is shard k's (B/n, 6, R, SP) uint8 ring on ``devices[k]``.
+    Each shard's inputs are copied to its device, then each device runs
+    ``_decode_gop_fused`` (one executor launch) on its shard; every
+    shard's work is enqueued before any result is read, so the devices run
+    at once.  A device may repeat (two shards on one card run one after
+    the other on its stream).  Returns per-device lists (rings, yuvs
+    (F, B/n, HH, S)); ``gather_shards`` joins them on the host."""
+    devs = [check_device(d) for d in devices]
+    n, B = len(devs), ops.shape[0]
+    if n < 1 or B % n:
+        raise ValueError(f"{B} streams do not split over {n} devices")
+    if len(rings) != n:
+        raise ValueError(f"{len(rings)} rings for {n} devices")
+    per = B // n
+    for k, (dev, ring) in enumerate(zip(devs, rings)):
+        if ring.device != dev or ring.shape[0] != per:
+            raise ValueError(f"ring {k}: {tuple(ring.shape)} on "
+                             f"{ring.device}, expected {per} streams on "
+                             f"{dev}")
+    # all copies first: a copy from pageable memory waits for its stream,
+    # which would hold a repeated device's next shard behind the last one
+    shards = [[_shard(a, k, per, dev) for a in (ops, coefs, sizes)]
+              for k, dev in enumerate(devs)]
+    out = [_decode_gop_fused(ring, *args, F, H, S)
+           for ring, args in zip(rings, shards)]
+    return [r for r, _y in out], [y for _r, y in out]
+
+
+def decode_round_sharded(devices, rings, ops, coefs, sizes, H: int, S: int):
+    """One frame round (F=1) of ``decode_gop_fused_sharded``, the port of
+    the JAX package's ``decode_round_sharded``: returns (rings, yuvs
+    (B/n, HH, S)) per device."""
+    rings, yuvs = decode_gop_fused_sharded(devices, rings, ops, coefs, sizes,
+                                           1, H, S)
+    return rings, [y[0] for y in yuvs]
+
+
+def gather_shards(parts, axis: int = 1) -> np.ndarray:
+    """Per-device results -> one host array, shards joined along the
+    stream axis: 1 for GOP frames (F, B, HH, S), 0 for rings and round
+    frames."""
+    return np.concatenate([p.cpu().numpy() for p in parts], axis=axis)
 
 
 class VmemBatchDecoder:
@@ -261,8 +336,10 @@ class VmemBatchDecoder:
             return yuv.contiguous(), None
         host = torch.empty(yuv.shape, dtype=yuv.dtype, pin_memory=True)
         host.copy_(yuv, non_blocking=True)
+        # the copy was enqueued on the current stream of yuv's device,
+        # which need not be the current device
         ev = torch.cuda.Event()
-        ev.record()
+        ev.record(torch.cuda.current_stream(yuv.device))
         return host, ev
 
     def decode_gops(self, gops) -> Iterator[np.ndarray]:

@@ -4,8 +4,10 @@ Port of ``mobiclipdecoder_tpu/parallel/batch.py``.  Per-stream FramePlans
 are stacked into (B, ...) arrays padded to shared shapes, and the whole
 batch is reconstructed by one ``decode_frame_core`` call per frame round;
 ``decode_gop`` runs a GOP as a loop over frames on a (B, 6, HH, S) int32
-ring that stays on the device.  The JAX package's mesh argument is not
-ported: the port runs one process per GPU (parallel/distributed.py).
+ring that stays on the device.  ``devices=[...]``, the counterpart of the
+JAX package's ``mesh=``, splits the stream batch into equal shards, one
+per device: each device keeps its shard's ring and runs
+``decode_frame_core`` on its shard's rows of every frame round.
 """
 from __future__ import annotations
 
@@ -39,12 +41,22 @@ def stack_plans(prepared: list[dict]) -> dict:
 
 class BatchVideoDecoder:
     """Decodes B independent streams in lockstep, one ``decode_frame_core``
-    call per frame round, on ``device`` (required; a CUDA device that is
-    not there raises)."""
+    call per frame round, on ``device``, or with the streams split into
+    equal contiguous shards over ``devices`` (one call per shard and
+    round).  One of the two is required; a CUDA device that is not there
+    raises."""
 
     def __init__(self, width: int, height: int, version: MobiclipVersion,
-                 batch: int, *, device, native: bool | None = None):
-        self.device = check_device(device)
+                 batch: int, *, device=None, devices=None,
+                 native: bool | None = None):
+        if (device is None) == (devices is None):
+            raise TypeError("give exactly one of device and devices")
+        self.devices = [check_device(d) for d in (
+            [device] if devices is None else devices)]
+        if not self.devices or batch % len(self.devices):
+            raise ValueError(f"{batch} streams do not split over "
+                             f"{len(self.devices)} devices")
+        self.device = self.devices[0]
         self.B = batch
         self.planners = [PlanningDecoder(width, height, version)
                          for _ in range(batch)]
@@ -60,8 +72,18 @@ class BatchVideoDecoder:
         self.width, self.height = width, height
         self.stride = self.planners[0].stride
         HH = height + height // 2
-        self.ring = torch.zeros((batch, 6, HH, self.stride),
-                                dtype=torch.int32, device=self.device)
+        per = batch // len(self.devices)
+        self.rings = [torch.zeros((per, 6, HH, self.stride),
+                                  dtype=torch.int32, device=d)
+                      for d in self.devices]
+
+    @property
+    def ring(self) -> torch.Tensor:
+        """The (B, 6, HH, S) int32 ring: on the device, or with several
+        devices joined on the CPU."""
+        if len(self.rings) == 1:
+            return self.rings[0]
+        return torch.cat([r.cpu() for r in self.rings])
 
     def scan_packets(self, packets: list[bytes]) -> dict:
         """One frame per stream -> stacked prepare_plan() host arrays."""
@@ -79,26 +101,38 @@ class BatchVideoDecoder:
                 prepared.append(prepare_plan(planner.plan()))
         return stack_plans(prepared)
 
-    def _step(self, arrays: dict) -> torch.Tensor:
-        """Roll the ring, decode one frame round into slot 0; returns the
-        (B, HH, S) int32 frames on the device."""
-        t = upload_plan(arrays, self.device)
-        ring = torch.roll(self.ring, 1, dims=1)
-        buf = decode_frame_core(ring, t["mc"], t["resid"], t["resid_coef"],
-                                t["iops"], t["icoef"], t["seqmap"],
-                                arrays["n_levels"], self.height, self.stride)
-        ring[:, 0] = buf
-        self.ring = ring
-        return buf
+    def _step(self, arrays: dict) -> list[torch.Tensor]:
+        """Roll each shard's ring, decode one frame round into slot 0;
+        returns each shard's (B/n, HH, S) int32 frames on its device."""
+        per = self.B // len(self.devices)
+        parts = [{k: v[i * per:(i + 1) * per] for k, v in arrays.items()}
+                 for i in range(len(self.devices))]
+        # every upload before any decode: a copy from pageable memory waits
+        # for its stream, which would hold a repeated device's next shard
+        uploads = [upload_plan(p, d) for p, d in zip(parts, self.devices)]
+        bufs = []
+        for i, (p, t) in enumerate(zip(parts, uploads)):
+            ring = torch.roll(self.rings[i], 1, dims=1)
+            buf = decode_frame_core(ring, t["mc"], t["resid"],
+                                    t["resid_coef"], t["iops"], t["icoef"],
+                                    t["seqmap"], p["n_levels"], self.height,
+                                    self.stride)
+            ring[:, 0] = buf
+            self.rings[i] = ring
+            bufs.append(buf)
+        return bufs
 
     def decode_frames(self, packets: list[bytes]) -> np.ndarray:
         """One frame per stream; returns (B, HH, S) uint8 planes."""
-        buf = self._step(self.scan_packets(packets))
-        return buf.to(torch.uint8).cpu().numpy()
+        bufs = self._step(self.scan_packets(packets))
+        return np.concatenate([b.to(torch.uint8).cpu().numpy()
+                               for b in bufs])
 
     def decode_gop(self, frames: list[list[bytes]]) -> np.ndarray:
         """frames[f][b] = packet of frame f of stream b.  The frames stay
         on the device until the GOP is done; returns (F, B, HH, S) uint8."""
         per_frame = [self.scan_packets(fp) for fp in frames]
-        bufs = [self._step(arrays).to(torch.uint8) for arrays in per_frame]
-        return torch.stack(bufs).cpu().numpy()
+        steps = [[b.to(torch.uint8) for b in self._step(arrays)]
+                 for arrays in per_frame]
+        return np.concatenate([torch.stack(shard).cpu().numpy()
+                               for shard in zip(*steps)], axis=1)

@@ -12,6 +12,7 @@ a rerun resume where the last one stopped.  ``shard_corpus``,
 from __future__ import annotations
 
 import json
+import os
 from pathlib import Path
 
 import numpy as np
@@ -31,8 +32,11 @@ def init_distributed(coordinator: str | None = None,
                      process_id: int | None = None) -> tuple[int, int]:
     """Join a ``torch.distributed`` process group by TCP rendezvous at
     ``coordinator`` (``host:port``; process 0 listens there): gloo where
-    there is no CUDA device, NCCL where there is.  Returns
-    (rank, world_size).  With no coordinator, runs standalone: (0, 1)."""
+    there is no CUDA device, NCCL where there is.  Under NCCL the process
+    is pinned to its own GPU, ``LOCAL_RANK`` when that is set, else its
+    rank modulo the visible GPUs, so ``"cuda"`` means that GPU from then
+    on.  Returns (rank, world_size).  With no coordinator, runs
+    standalone: (0, 1)."""
     if coordinator is None:
         return 0, 1
     import torch
@@ -40,7 +44,12 @@ def init_distributed(coordinator: str | None = None,
     backend = "nccl" if torch.cuda.is_available() else "gloo"
     dist.init_process_group(backend, init_method=f"tcp://{coordinator}",
                             world_size=num_processes, rank=process_id)
-    return dist.get_rank(), dist.get_world_size()
+    rank = dist.get_rank()
+    if backend == "nccl":
+        local = os.environ.get("LOCAL_RANK")
+        torch.cuda.set_device(int(local) if local is not None
+                              else rank % torch.cuda.device_count())
+    return rank, dist.get_world_size()
 
 
 def shard_corpus(files: list[str | Path]) -> list[GopShard]:

@@ -22,6 +22,7 @@ import torch
 
 from .ops.intra_tables import KIND, TAPS
 from .ops.packing import _geom
+from .utils.device import indexed
 
 
 def ring_shape(batch: int, height: int, stride: int) -> tuple:
@@ -81,8 +82,9 @@ _TABLES: dict[str, torch.Tensor] = {}
 
 def kernel_tables(device) -> torch.Tensor:
     """(20, 256, 4) uint8 [kind, tap0, tap1, tap2] per (mode, pixel r*16+c)
-    from ops/intra_tables.py, on ``device`` (cached per device)."""
-    key = str(torch.device(device))
+    from ops/intra_tables.py, on ``device`` (cached per indexed device)."""
+    device = indexed(device)
+    key = str(device)
     t = _TABLES.get(key)
     if t is None:
         tab = np.zeros((20, 256, 4), np.uint8)

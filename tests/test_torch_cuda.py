@@ -209,3 +209,40 @@ def test_cuda_sad_volume_and_audio_match_cpu(cuda):
     for a, b in zip(fastaudio_synth(*(a.to(cuda) for a in args)),
                     fastaudio_synth(*args)):
         np.testing.assert_array_equal(a.cpu().numpy(), b.numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ndev", [1, 2])
+def test_cuda_sharded_decode_matches_unsharded(cuda, ndev):
+    """The whole-GOP executor and the wavefront engine with 4 streams
+    split in two shards, both on cuda:0 or on cuda:0 and cuda:1 (skips
+    with fewer than 2 GPUs): equal to the unsharded decode on the card,
+    each shard's output on its own device."""
+    from mobiclipdecoder_tpu_torch.ops.vmem_engine import (
+        _decode_gop_fused, decode_gop_fused_sharded, gather_shards,
+        sharded_rings)
+    from mobiclipdecoder_tpu_torch.parallel.batch import BatchVideoDecoder
+    if torch.cuda.device_count() < ndev:
+        pytest.skip(f"needs {ndev} GPUs")
+    devices = ["cuda:0", f"cuda:{ndev - 1}"]
+    v = MobiclipVersion.MODS_DS
+    frames = _frames(v, (51, 52, 53, 54), 4)
+    scan = VmemBatchDecoder(W, H, v, batch=4, device="cpu", native=False)
+    arrays = packing._pack_gop_chunks([scan._scan_all(fp) for fp in frames],
+                                      4)
+    before = executor.launches
+    rings, yuvs = decode_gop_fused_sharded(
+        devices, sharded_rings(devices, 4, H, S), *arrays, 4, H, S)
+    assert executor.launches == before + 2
+    assert [y.device for y in yuvs] == [torch.device(d) for d in devices]
+    ring1 = torch.zeros(state.ring_shape(4, H, S), dtype=torch.uint8,
+                        device=cuda)
+    ring1, yuv1 = _decode_gop_fused(
+        ring1, *(torch.from_numpy(a).to(cuda) for a in arrays), 4, H, S)
+    np.testing.assert_array_equal(gather_shards(yuvs), yuv1.cpu().numpy())
+    np.testing.assert_array_equal(gather_shards(rings, 0),
+                                  ring1.cpu().numpy())
+    np.testing.assert_array_equal(
+        BatchVideoDecoder(W, H, v, batch=4, devices=devices).decode_gop(
+            frames),
+        BatchVideoDecoder(W, H, v, batch=4, device=cuda).decode_gop(frames))

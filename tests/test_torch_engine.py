@@ -256,6 +256,8 @@ def test_importing_the_port_leaves_jax_unimported():
         for p in PORT.rglob("*.py")
         if "build" not in p.relative_to(PORT).parts)
     assert "mobiclipdecoder_tpu_torch.utils.native" in mods
+    assert "mobiclipdecoder_tpu_torch.graft_entry" in mods
+    assert "mobiclipdecoder_tpu_torch.tools.warm_kernels" in mods
     jax_dir = str(PORT.parent / "mobiclipdecoder_tpu") + "/"
     code = (
         "import importlib, os, sys; pre = set(sys.modules);"
