@@ -50,7 +50,19 @@ and the user's entry points:
   [multi_gpu]  with two or more GPUs, run_worker in two spawned processes
                through init_distributed (NCCL): each rank on its own GPU,
                its shards == the oracle worker's; with one GPU it prints
-               that it was skipped.
+               that it was skipped;
+  [trace]      torch.profiler (CPU and CUDA activity) over decode_gops of
+               20 of the main path's GOPs, then one decode_gop: the
+               engine's mobiclip.scan / .pack / .device_decode spans must
+               appear; their host ms per GOP, and the device's busy share
+               of the window (the union of its kernel, memcpy and memset
+               intervals over the wall), under the profiler;
+  [bench]      the port's bench (mobiclipdecoder_tpu_torch/bench.py) on the
+               main path's GOP 0: its e2e GOP == the main path's frames
+               and the oracle; its JSON line;
+  [scaling]    tools/scaling_bench on cuda:0 (n = 1): a worker process and
+               the in-process sharded decode, every last GOP == the
+               unsharded executor's; its JSON line.
 
 The CPU references of [wavefront] and [encode] (the oracle of streams 2-7,
 the encoder with device="cpu") run in a pool of spawned processes, started
@@ -64,9 +76,14 @@ memory at 256x192 and 400x240, in global memory at 640x480).
 ``--kernel-only`` stops after the build (whose ptxas report it prints) and
 the kernel-vs-plain checks at every geometry, as a GOP and at F=1, and
 prints no result line.  ``--multi-device`` runs the build, the main
-path's decode and then only [sharded], [entry] and [multi_gpu] (on a
-machine with several GPUs: the sharded paths across cards, a launch for
-another card refused, two NCCL ranks), and prints no result line.
+path's decode and then only [sharded], [entry], [multi_gpu] and
+[scaling] over every visible GPU (on a machine with several GPUs: the
+sharded paths across cards, a launch for another card refused, two NCCL
+ranks, the worker and mesh scaling at n = 1, 2, 4, 8 up to the GPUs),
+and prints no result line.  The kernels line's launches by path count
+the bench's launches at all three of its geometries under "bench" (and
+its F=1 rounds under "bench_per_round"), and [scaling]'s launches in this
+process (the mesh) under "scaling"; each worker process counts its own.
 
 Prints one line per phase with its seconds, then a JSON line describing
 each kernel, the card's name and power limit, and last a JSON line
@@ -115,6 +132,9 @@ ENC = dict(quantizer=0x14, gop=4, refs=2, me_range=6)   # [encode]
 ENC_FRAMES = 3
 IMA_CHANNELS, IMA_SAMPLES = 64, 32768     # [audio]: 1 s at 32768 Hz
 FA_CHANNELS, FA_PACKETS = 16, 50
+TRACE_GOPS = 20                     # [trace]: decode_gops under the profiler
+SPAN_NAMES = ("mobiclip.scan", "mobiclip.pack", "mobiclip.device_decode")
+TRACE_WINDOW = "chip_smoke.decode_gops"
 # H100 SXM peaks: memory rate, and the 32-bit rate outside the tensor
 # cores (no int32 peak is published; the executor's arithmetic is 32-bit
 # integer)
@@ -1205,6 +1225,7 @@ def multi_device_run(ds, mf, gops, smi, t_start) -> int:
     sharded_phase(ds, gops, outs, dec.ring.cpu().numpy(), geo, smi)
     entry_phase(ds, smi)
     multi_gpu_phase(smi)
+    scaling_phase(ds, gops, outs, smi)
     log(f"[total] {time.perf_counter() - t_start:.1f} s; --multi-device: "
         f"no result line")
     return 0
@@ -1361,6 +1382,188 @@ def multi_gpu_phase(smi) -> dict | None:
             + f"; all {len(names)} shards == oracle worker; {wall:.1f} s "
             f"with process start | {smi}")
     return {"ranks": ranks, "wall_s": wall}
+
+
+# ------------------------------------------------- trace, bench, scaling
+def busy_union(intervals, w0: float, w1: float) -> tuple[float, int]:
+    """(length of the union of the (start, end) intervals clipped to
+    [w0, w1], the number of intervals that overlap it)."""
+    clipped = sorted((max(a, w0), min(b, w1)) for a, b in intervals
+                     if b > w0 and a < w1)
+    total, cur = 0.0, None
+    for a, b in clipped:
+        if cur is None or a > cur[1]:
+            total += 0.0 if cur is None else cur[1] - cur[0]
+            cur = [a, b]
+        else:
+            cur[1] = max(cur[1], b)
+    total += 0.0 if cur is None else cur[1] - cur[0]
+    return total, len(clipped)
+
+
+def device_intervals(events) -> dict[str, list]:
+    """The device's kernel, memcpy and memset intervals (us) among a
+    trace's events, by kind; the device-side copies of user annotations
+    (record_function ranges) are not device work."""
+    out = {"kernel": [], "memcpy": [], "memset": []}
+    for e in events:
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                or getattr(e, "is_user_annotation", False)
+                or e.name in SPAN_NAMES or e.name == TRACE_WINDOW):
+            continue
+        low = e.name.lower()
+        kind = ("memcpy" if low.startswith("memcpy") else
+                "memset" if low.startswith("memset") else "kernel")
+        out[kind].append((e.time_range.start, e.time_range.end))
+    return out
+
+
+def trace_phase(ds, gops, k1_outs, smi) -> dict:
+    """[trace]: torch.profiler with CPU and CUDA activity over decode_gops
+    of TRACE_GOPS of the main path's GOPs (after a warm-up), then one
+    decode_gop.  The engine's three stage spans must appear (scan and
+    pack once per GOP of the window; device_decode in decode_gop); each
+    span's host ms per GOP, and the device's busy share of the
+    decode_gops window: the union of its kernel, memcpy and memset
+    intervals over the window's wall, under the profiler.  The same
+    window run untraced first gives the profiler's cost."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from mobiclipdecoder_tpu_torch.ops.vmem_engine import VmemBatchDecoder
+    with phase("trace"):
+        dec = VmemBatchDecoder(W, H, ds, batch=B, native=True, device="cuda")
+        list(dec.decode_gops(iter(gops)))
+
+        def window() -> int:
+            n = sum(1 for _out in dec.decode_gops(
+                gops[g % len(gops)] for g in range(TRACE_GOPS)))
+            torch.cuda.synchronize()
+            return n
+        t0 = time.perf_counter()
+        window()
+        untraced_ms = (time.perf_counter() - t0) * 1e3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            with record_function(TRACE_WINDOW):
+                n = window()
+            one = dec.decode_gop(gops[0])
+            torch.cuda.synchronize()
+        if n != TRACE_GOPS or not np.array_equal(one, k1_outs[0]):
+            raise AssertionError(f"[trace] {n} GOPs; decode_gop == the main "
+                                 f"path's GOP 0: "
+                                 f"{np.array_equal(one, k1_outs[0])}")
+        events = prof.events()
+        cpu = torch.autograd.DeviceType.CPU
+        win = [e for e in events
+               if e.name == TRACE_WINDOW and e.device_type == cpu]
+        if len(win) != 1:
+            raise AssertionError(f"[trace] {len(win)} window ranges")
+        w0, w1 = win[0].time_range.start, win[0].time_range.end
+        spans = {}
+        for name in SPAN_NAMES:
+            evs = [e for e in events
+                   if e.name == name and e.device_type == cpu]
+            inside = [e for e in evs if w0 <= e.time_range.start < w1]
+            want = 0 if name == "mobiclip.device_decode" else TRACE_GOPS
+            if not evs or len(inside) != want:
+                raise AssertionError(f"[trace] {name}: {len(evs)} spans, "
+                                     f"{len(inside)} in the window")
+            per = inside or evs
+            spans[name] = {"spans": len(evs), "ms_per_gop": sum(
+                e.time_range.elapsed_us() for e in per) / 1e3
+                / (TRACE_GOPS if inside else len(evs))}
+        kinds = device_intervals(events)
+        busy_us, n_act = busy_union(
+            [iv for v in kinds.values() for iv in v], w0, w1)
+        if n_act == 0:
+            raise AssertionError("[trace] the profiler saw no device work in "
+                                 "the decode_gops window")
+        wall_ms = (w1 - w0) / 1e3
+        share = busy_us / 1e3 / wall_ms
+        log(f"[trace] decode_gops of {TRACE_GOPS} GOPs (B={B}, F={F}) under "
+            f"torch.profiler (CPU + CUDA activity): host ms per GOP "
+            + ", ".join(f"{k} {v['ms_per_gop']:.3f} ({v['spans']} spans)"
+                        for k, v in spans.items())
+            + f" (device_decode: one decode_gop's download wait); device "
+            f"busy under the profiler {busy_us / 1e3:.3f} of {wall_ms:.3f} "
+            f"ms = {share:.3f} of the wall (union of "
+            + ", ".join(f"{len(v)} {k}" for k, v in kinds.items())
+            + f" intervals); wall per GOP {wall_ms / TRACE_GOPS:.3f} ms "
+            f"traced vs {untraced_ms / TRACE_GOPS:.3f} untraced | {smi}")
+    return {"spans": spans, "busy_ms": busy_us / 1e3, "wall_ms": wall_ms,
+            "busy_share": share, "untraced_wall_ms": untraced_ms,
+            "device_activities": {k: len(v) for k, v in kinds.items()}}
+
+
+def bench_phase(gops, k1_outs, main_oracle, smi) -> dict:
+    """[bench]: the port's bench (mobiclipdecoder_tpu_torch/bench.py) on
+    the main path's GOP 0 (its own streams: seeds 0-7, QP 0x18), counted;
+    its e2e GOP == the main path's K1 frames and the oracle (streams
+    0-1).  Prints the bench's JSON line."""
+    from mobiclipdecoder_tpu_torch import bench
+    with phase("bench"):
+        zero_counts()
+        report, e2e = bench.run(device="cuda", ds=(W, H, B, F),
+                                frames=gops[0])
+        sync_all()
+        launches = read_counts()
+        if not np.array_equal(e2e, k1_outs[0]):
+            raise AssertionError("[bench] the e2e GOP differs from the main "
+                                 "path's")
+        for b, exp in main_oracle.items():
+            if not np.array_equal(e2e[:, b], exp[:F]):
+                raise AssertionError(f"[bench] e2e stream {b} differs from "
+                                     f"the oracle")
+        if launches[0] < 1 or launches[1] < 1:
+            raise AssertionError(f"[bench] launches {launches}")
+        log(f"[bench] bench.run(device='cuda'): its e2e GOP == the main "
+            f"path's K1 frames and the oracle on streams "
+            f"{sorted(main_oracle)}; launches whole-GOP {launches[0]}, "
+            f"single-frame {launches[1]} | {smi}")
+        log("[bench] " + json.dumps(report))
+    return {"report": report, "launches": launches}
+
+
+def scaling_phase(ds, gops, k1_outs, smi, devices=None) -> dict:
+    """[scaling]: tools/scaling_bench over ``devices`` (default: every
+    visible GPU) on the main path's GOP 0 (8 streams, 24 frames, packed
+    once here): worker processes pinned to their cards and cores, and
+    the in-process sharded decode.  Every worker's last GOP and the
+    mesh's == the unsharded K1 output; the mesh's launches are counted
+    here, each worker counts its own."""
+    from mobiclipdecoder_tpu_torch.tools import scaling_bench
+    with phase("scaling"):
+        ops, coefs, sizes = packed_gop(ds, gops[0], (W, H))
+        gop = {"ops": ops, "coefs": coefs, "sizes": sizes, "F": F, "H": H,
+               "S": width_stride(W)}
+        zero_counts()
+        report, outs = scaling_bench.run(devices, size=(W, H), streams=B,
+                                         frames=F, gop=gop)
+        sync_all()
+        launches = read_counts()
+        worker_launches = {}
+        for n, w in outs["workers"].items():
+            worker_launches[n] = [r["launches"] for r in w["results"]]
+            for k, last in enumerate(w["last"]):
+                if not np.array_equal(last, k1_outs[0]):
+                    raise AssertionError(f"[scaling] worker {k} of {n}: "
+                                         f"last GOP differs from K1's")
+            if min(worker_launches[n]) < 1:
+                raise AssertionError(f"[scaling] worker launches "
+                                     f"{worker_launches}")
+        for n, last in outs["mesh"].items():
+            if not np.array_equal(last, np.concatenate([k1_outs[0]] * n,
+                                                       axis=1)):
+                raise AssertionError(f"[scaling] mesh n={n} differs from "
+                                     f"K1's")
+        if launches[0] < 1:
+            raise AssertionError(f"[scaling] mesh launches {launches}")
+        log(f"[scaling] workers n = {sorted(outs['workers'])} and mesh n = "
+            f"{sorted(outs['mesh'])}: every last GOP == the unsharded K1 "
+            f"output; launches: mesh (this process) {launches[0]}, workers "
+            f"{worker_launches} | {smi}")
+        log("[scaling] " + json.dumps(report))
+    return {"report": report, "launches": launches,
+            "worker_launches": worker_launches}
 
 
 def main(argv=None) -> int:
@@ -1525,6 +1728,9 @@ def main(argv=None) -> int:
             + ", ".join(f"{r:.1f}" for r in rates) + f" frames/s; median "
             f"{med:.1f} ({F * B / med * 1e3:.3f} ms/GOP; device stages "
             f"{dev_ms / (F * B / med * 1e3):.3f} of that wall) | {smi}")
+
+    traced = trace_phase(ds, gops, outs, smi)
+    benched = bench_phase(gops, outs, main_oracle, smi)
 
     # 7. the wide geometries: kernel == plain, format surface == oracle,
     # executor ms/GOP at B=8, F=24
@@ -1700,6 +1906,7 @@ def main(argv=None) -> int:
     entry_res = entry_phase(ds, smi)
     warm = warm_phase(smi)
     multi_gpu = multi_gpu_phase(smi)
+    scaling = scaling_phase(ds, gops, outs, smi, ["cuda:0"])
 
     src = "mobiclipdecoder_tpu_torch/csrc/gop_executor.cu"
     k1 = "mobiclipdecoder_tpu/ops/vmem_engine.py:1286"
@@ -1714,13 +1921,16 @@ def main(argv=None) -> int:
                              "sharded": sharded[f"{W}x{H}"]["launches"],
                              "warm": warm[f"{W}x{H}"]["launches"][0],
                              "dryrun_multichip_32x32":
-                                 entry_res["launches"][0]}}
+                                 entry_res["launches"][0],
+                             "bench": benched["launches"][0],
+                             "scaling": scaling["launches"][0]}}
     for (label, _g), cname in zip(geo.items(),
                                   ("moflex_400x240", "moc5_640x480")):
         k1_paths[label] = {"transcode": trans[cname]["launches"][0],
                            "sharded": sharded[label]["launches"],
                            "warm": warm[label]["launches"][0]}
     k2_paths = {"per_frame": pf_launches[1],
+                "bench_per_round": benched["launches"][1],
                 "dryrun_multichip_32x32": entry_res["launches"][1],
                 **{f"warm_{g}": warm[g]["launches"][1]
                    for g in (f"{W}x{H}", "400x240", "640x480")}}
@@ -1769,7 +1979,9 @@ def main(argv=None) -> int:
     log("[paths] " + json.dumps({"wavefront": wavefront, "encode": encoded,
                                  "audio": audio, "sharded": sharded,
                                  "entry": entry_res, "warm": warm,
-                                 "multi_gpu": multi_gpu}))
+                                 "multi_gpu": multi_gpu, "trace": traced,
+                                 "bench": benched["report"],
+                                 "scaling": scaling["report"]}))
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(smi)

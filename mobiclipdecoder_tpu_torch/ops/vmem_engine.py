@@ -10,7 +10,12 @@ it, ``ops/residuals.py`` runs the IDCT pre-pass, and ONE executor launch
 6-slot reference ring, which stays on the device across GOPs.
 
 Every decode, single frames included, goes through this fused path (a
-single frame is a GOP of one).  ``decode_gop_fused_sharded`` and
+single frame is a GOP of one).  The stages carry the JAX engine's trace
+spans as ``torch.profiler.record_function`` ranges at the same sites:
+``mobiclip.scan`` (host scan), ``mobiclip.pack`` (assembly of the upload
+blob) and ``mobiclip.device_decode`` (the wait for a decode's download in
+``decode_gop`` and ``decode_frames``); a ``torch.profiler`` trace shows
+them beside the device's work.  ``decode_gop_fused_sharded`` and
 ``decode_round_sharded`` split the stream batch over a list of devices,
 one executor launch per shard (the JAX package's shard_map paths).
 """
@@ -22,6 +27,7 @@ from typing import Iterator
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from ..models.plan import PlanningDecoder
 from ..runtime.metrics import DecodeMetrics
@@ -207,7 +213,8 @@ class VmemBatchDecoder:
         the fused GOP executor with F=1."""
         t0 = time.perf_counter()
         t1, yuv = self._dispatch_gop_fused([packets])
-        out = yuv[0].cpu().numpy()
+        with record_function("mobiclip.device_decode"):
+            out = yuv[0].cpu().numpy()
         t2 = time.perf_counter()
         m = self.metrics
         m.frames += self.B
@@ -227,7 +234,8 @@ class VmemBatchDecoder:
             out = self._dispatch_gop_native(frames)
             if out is not None:
                 return out[0], self._maybe_crop(out[1])
-        plans_fb = [self._scan_all(fp) for fp in frames]
+        with record_function("mobiclip.scan"):
+            plans_fb = [self._scan_all(fp) for fp in frames]
         t1, yuv = self._dispatch_plans(plans_fb)
         return t1, self._maybe_crop(yuv)
 
@@ -243,14 +251,15 @@ class VmemBatchDecoder:
         if F == 0 or F >= 4096:
             return None
         per = [[frames[f][b] for f in range(F)] for b in range(self.B)]
-        for nv in self.natives:
-            nv.checkpoint()
-        if self.B > 1:
-            res = list(self._pool.map(
-                lambda b: self.natives[b].scan_gop_packed(per[b]),
-                range(self.B)))
-        else:
-            res = [self.natives[0].scan_gop_packed(per[0])]
+        with record_function("mobiclip.scan"):
+            for nv in self.natives:
+                nv.checkpoint()
+            if self.B > 1:
+                res = list(self._pool.map(
+                    lambda b: self.natives[b].scan_gop_packed(per[b]),
+                    range(self.B)))
+            else:
+                res = [self.natives[0].scan_gop_packed(per[0])]
         if any(r["err"] or r["val_overflow"] or r["done"] != F
                for r in res):
             # malformed frame, >int16 coefficient, or a stream outgrew the
@@ -287,7 +296,8 @@ class VmemBatchDecoder:
             tb, yb = self._dispatch_parts(
                 [_split_gop_part(q, mid, F) for q in parts])
             return tb, torch.cat([ya, yb], dim=0)
-        blob, nct, nnzb = _assemble_gop_parts(parts)
+        with record_function("mobiclip.pack"):
+            blob, nct, nnzb = _assemble_gop_parts(parts)
         t1 = time.perf_counter()
         self.ring, yuv = _decode_gop_fused_sblob(
             self.ring, self._upload(blob), F, nct, nnzb, self.height,
@@ -313,7 +323,8 @@ class VmemBatchDecoder:
 
     def _dispatch_plans_one(self, plans_fb: list[list[dict]]):
         F = len(plans_fb)
-        ops, coefs, sizes = _pack_gop_chunks(plans_fb, self.B)
+        with record_function("mobiclip.pack"):
+            ops, coefs, sizes = _pack_gop_chunks(plans_fb, self.B)
         t1 = time.perf_counter()
         nct = ops.shape[1]
         sp = _pack_gop_blob_sparse(ops, coefs,
@@ -380,7 +391,8 @@ class VmemBatchDecoder:
         t0 = time.perf_counter()
         F = len(frames)
         t1, yuv = self._dispatch_gop_fused(frames)
-        out = yuv.cpu().numpy()
+        with record_function("mobiclip.device_decode"):
+            out = yuv.cpu().numpy()
         t2 = time.perf_counter()
         m = self.metrics
         m.frames += F * self.B

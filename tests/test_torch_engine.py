@@ -258,6 +258,8 @@ def test_importing_the_port_leaves_jax_unimported():
     assert "mobiclipdecoder_tpu_torch.utils.native" in mods
     assert "mobiclipdecoder_tpu_torch.graft_entry" in mods
     assert "mobiclipdecoder_tpu_torch.tools.warm_kernels" in mods
+    assert "mobiclipdecoder_tpu_torch.bench" in mods
+    assert "mobiclipdecoder_tpu_torch.tools.scaling_bench" in mods
     jax_dir = str(PORT.parent / "mobiclipdecoder_tpu") + "/"
     code = (
         "import importlib, os, sys; pre = set(sys.modules);"
