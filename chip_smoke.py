@@ -2,13 +2,25 @@
 
     python3 chip_smoke.py [--kernel-only | --multi-device]
 
-Builds the executor kernel from mobiclipdecoder_tpu_torch/csrc with nvcc,
-holds it against its plain PyTorch version, drives the main path (the
-fused whole-GOP decode of 8 DS MODS 256x192 streams, 2 GOPs of 24 frames)
-and the per-frame path, checks both against the sequential oracle, and
-times the kernel and the decoder.  Then it covers the other geometries
-and the user's entry points:
+Builds the executor kernel and the prologue kernels from
+mobiclipdecoder_tpu_torch/csrc with nvcc (one nvcc per source, started
+together), holds them against their plain PyTorch versions, drives the
+main path (the fused whole-GOP decode of 8 DS MODS 256x192 streams, 2 GOPs
+of 24 frames) and the per-frame path, checks both against the sequential
+oracle, and times the kernels and the decoder.  Then it covers the other
+geometries and the user's entry points:
 
+  [prologue]   the prologue kernels (K3 the coefficient scatter, K4 the
+               IDCT pre-pass with the op widening, csrc/prologue.cu) ==
+               the plain chain (unpack_gop_blob + _residuals) on the card,
+               exact int32, on the blobs of DS 256x192 B=8 F=24, 400x240
+               B=4 F=12 and 640x480 B=2 F=8 (the bench's sizes; the two
+               wide GOPs are synthesized in spawned processes from the
+               start of the run) and in K4's dense form on their dense
+               arrays, and on a blob of int16 extremes with pad,
+               out-of-range and negative indices; each kernel's ms
+               (median of 20, in turns with the plain chain), its bound
+               and the plain chain's ms;
   [geometry]   3DS 400x240 (stride 512) and Wii 640x480 (stride 1024, the
                Moflex profile): kernel == plain executor, the format-
                surface streams through decode_stream_chunk == oracle, and
@@ -69,14 +81,15 @@ the encoder with device="cpu") run in a pool of spawned processes, started
 when [wavefront] starts and shut down after [encode].
 
 Every phase raises on a mismatch.  Before each run of a user path that
-reaches the executor its launch counters are set to 0, and they are read
-after it (the kernels line gives each kernel's launches by path); they
-also show which form of the kernel ran (the working plane in shared
-memory at 256x192 and 400x240, in global memory at 640x480).
-``--kernel-only`` stops after the build (whose ptxas report it prints) and
-the kernel-vs-plain checks at every geometry, as a GOP and at F=1, and
-prints no result line.  ``--multi-device`` runs the build, the main
-path's decode and then only [sharded], [entry], [multi_gpu] and
+reaches the executor its launch counters and the prologue kernels' are
+set to 0, and they are read after it (the kernels line gives each
+kernel's launches by path); they also show which form of the executor ran
+(the working plane in shared memory at 256x192 and 400x240, in global
+memory at 640x480).  ``--kernel-only`` stops after the build (whose ptxas
+report it prints), [prologue] and the executor-vs-plain checks at every
+geometry, as a GOP and at F=1, and prints no result line.
+``--multi-device`` runs the build, the main path's decode and then only
+[sharded], [entry], [multi_gpu] and
 [scaling] over every visible GPU (on a machine with several GPUs: the
 sharded paths across cards, a launch for another card refused, two NCCL
 ranks, the worker and mesh scaling at n = 1, 2, 4, 8 up to the GPUs),
@@ -93,7 +106,9 @@ JAX package: the codec's host modules are the port's own copies.
 
 Besides the checks it measures, on the same card in the same run: the
 executor's time at B = 8, 32, 128 and 256 streams, the time of each stage
-of one GOP's dispatch, the plain executor on the card against the kernel
+of one GOP's dispatch (the prologue kernels in the decode's order, the
+plain chain's two stages beside them), the device activities per GOP
+under the profiler, the plain executor on the card against the kernel
 at the Moflex shape, the sustained frames/s of decode_gops over three
 windows of SUSTAIN_GOPS GOPs, the executor at each geometry, and the
 frames/s of the transcoder and of the corpus worker.  For each
@@ -162,17 +177,27 @@ def smi_line() -> str:
 
 
 def zero_counts() -> None:
-    from mobiclipdecoder_tpu_torch.ops import executor
+    from mobiclipdecoder_tpu_torch.ops import executor, prologue_kernels
     executor.launches = 0
     executor.frame_launches = 0
     executor.smem_plane_launches = 0
     executor.global_plane_launches = 0
+    prologue_kernels.scatter_launches = 0
+    prologue_kernels.residual_launches = 0
 
 
 def read_counts() -> tuple[int, int]:
     """(whole-GOP launches, single-frame launches) since zero_counts."""
     from mobiclipdecoder_tpu_torch.ops import executor
     return executor.launches, executor.frame_launches
+
+
+def read_prologue_counts() -> tuple[int, int]:
+    """(K3 scatter launches, K4 row-transform launches) since
+    zero_counts."""
+    from mobiclipdecoder_tpu_torch.ops import prologue_kernels
+    return (prologue_kernels.scatter_launches,
+            prologue_kernels.residual_launches)
 
 
 def read_plane_counts() -> tuple[int, int]:
@@ -303,12 +328,10 @@ def oracle_frames(version, packets, size=(W, H)):
     return np.stack(out)
 
 
-def packed_gop(version, gop, size=(W, H)):
-    """Native scan of one GOP -> (ops, coefs, sizes) host arrays, the
-    executor's inputs before the residual pre-pass."""
+def scanned_parts(version, gop, size=(W, H)) -> list[dict]:
+    """Native scan of one GOP -> one packed part per stream."""
     from mobiclipdecoder_tpu_torch.utils.native import NativePlanner
-    from mobiclipdecoder_tpu_torch.ops.packing import (_gop_part,
-                                                       _part_dense_arrays)
+    from mobiclipdecoder_tpu_torch.ops.packing import _gop_part
     nb = len(gop[0])
     parts = []
     for b in range(nb):
@@ -317,7 +340,14 @@ def packed_gop(version, gop, size=(W, H)):
         if r["err"] or r["val_overflow"] or r["done"] != len(gop):
             raise RuntimeError(f"native scan of stream {b} failed")
         parts.append(_gop_part(r))
-    return _part_dense_arrays(parts)
+    return parts
+
+
+def packed_gop(version, gop, size=(W, H)):
+    """Native scan of one GOP -> (ops, coefs, sizes) host arrays, the
+    executor's inputs before the residual pre-pass."""
+    from mobiclipdecoder_tpu_torch.ops.packing import _part_dense_arrays
+    return _part_dense_arrays(scanned_parts(version, gop, size))
 
 
 def kernel_vs_plain(version, gop, label, seed, size=(W, H)):
@@ -486,15 +516,242 @@ def b_sweep(inputs) -> dict:
     return {nb: replicate(inputs, nb) for nb in SWEEP_B}
 
 
+# ------------------------------------------------------------ prologue
+# [prologue]: the bench's sizes at each geometry (DS 256x192 B=8 F=24 is
+# the main path's GOP 0; the other two are synthesized in spawned
+# processes from the start of the run)
+PROLOGUE_WIDE = (((400, 240), 4, 12), ((640, 480), 2, 8))
+# integer operations per row of the IDCT pre-pass (csrc/prologue_ops.cuh):
+# size 8 is 16 8-point butterflies of 42 operations, the +32 and 64
+# shifts; size 4 is 32 4-point butterflies of 10, four +32s and 64 shifts
+ROW_OPS = {8: 16 * 42 + 1 + 64, 4: 32 * 10 + 4 + 64}
+OPS_PER_NONZERO = 8         # bounds check, int16 decode, address, store
+OPS_PER_OP_ROW = 12         # the widening of one packed op row
+
+
+def prologue_work(blob, nb: int, nct: int, nnzb: int) -> dict:
+    """What each prologue kernel must do for this blob: bytes (each input
+    read once, each output written once) and operations, and bound_ms,
+    the larger of bytes over the memory rate and operations over the
+    32-bit rate.  K3 reads every index and value and writes the nonzeros
+    in range; K4's sparse-blob form reads the op rows, the size bits and
+    the scattered rows and writes ops and resid; its dense form reads
+    coefs and sizes and writes resid."""
+    from mobiclipdecoder_tpu_torch.ops.packing import CHUNK
+    from mobiclipdecoder_tpu_torch.ops.prologue import blob_sections
+    ops3, sbits, idx, _v = (t.cpu().numpy() for t in blob_sections(
+        torch.from_numpy(np.asarray(blob)), nb, nct, nnzb))
+    nrows = nb * nct * CHUNK
+    rows64 = nct * CHUNK * 64
+    nnz = int(((idx >= 0) & (idx < rows64)).sum())
+    n4 = int(np.unpackbits(sbits.view(np.uint8), bitorder="little")[
+        :nrows].sum())
+    row_ops = n4 * ROW_OPS[4] + (nrows - n4) * ROW_OPS[8]
+
+    def bound(nbytes: int, nops: int) -> dict:
+        tb, to = nbytes / HBM_BYTES_PER_S, nops / OPS_PER_S
+        return {"bytes": nbytes, "ops": nops,
+                "bound_ms": max(tb, to) * 1e3,
+                "bound_by": "bytes" if tb >= to else "operations"}
+    return {
+        "rows": nrows, "nnz": nnz, "nnzb": nnzb, "size4_rows": n4,
+        "scatter": bound(nb * nnzb * 6 + nnz * 4, nb * nnzb * OPS_PER_NONZERO),
+        "rows_sblob": bound(nrows * (12 + 256 + 16 + 256) + sbits.size * 4,
+                            row_ops + nrows * OPS_PER_OP_ROW),
+        "rows_dense": bound(nrows * (256 + 4 + 256), row_ops)}
+
+
+def extreme_blob(seed: int):
+    """A two-chunk blob of 3 streams from _pack_gop_blob_sparse with random
+    op words, sizes and coefficients (int16 extremes included), then pad,
+    out-of-range and negative indices: (blob, B, nct, nnzb)."""
+    from mobiclipdecoder_tpu_torch.ops import packing
+    rng = np.random.default_rng(seed)
+    nb, nct = 3, 2
+    rows = nct * packing.CHUNK
+    ops = rng.integers(0, 1 << 12, (nb, nct, packing.CHUNK, 4)).astype(
+        np.int32)
+    coefs = rng.integers(-32768, 32768, (nb, nct, packing.CHUNK, 64)).astype(
+        np.int32)
+    coefs[rng.random(coefs.shape) < 0.9] = 0
+    coefs[0, 0, 0, :2] = (-32768, 32767)
+    sizes = rng.choice([4, 8], (nb, rows)).astype(np.int32)
+    blob, nnzb = packing._pack_gop_blob_sparse(ops, coefs, sizes)
+    c = nb * rows * 3 + nb * rows // 32
+    blob[c + nnzb - 4:c + nnzb] = (-1, rows * 64 + 1, 2 ** 31 - 1, -(2 ** 31))
+    return blob, nb, nct, nnzb
+
+
+def plain_prologue(blob_d, nb: int, nct: int, nnzb: int):
+    """The plain chain on the card: unpack_gop_blob, then _residuals."""
+    from mobiclipdecoder_tpu_torch.ops.prologue import unpack_gop_blob
+    from mobiclipdecoder_tpu_torch.ops.residuals import _residuals
+    ops, coefs, sizes = unpack_gop_blob(blob_d, nb, nct, nnzb)
+    resid = _residuals(coefs.reshape(-1, 64), sizes.reshape(-1))
+    return ops, resid.view(nb, nct, 256, 64)
+
+
+def max_err(a: torch.Tensor, b: torch.Tensor) -> int:
+    if a.shape != b.shape or a.dtype != b.dtype:
+        raise AssertionError(f"{tuple(a.shape)} {a.dtype} vs "
+                             f"{tuple(b.shape)} {b.dtype}")
+    return int((a.long() - b.long()).abs().max()) if a.numel() else 0
+
+
+# GPU cycles of the spin that runs ahead of each timed call in [prologue]
+# (about 1 ms): the host enqueues the call while the card spins, so a
+# kernel of tens of us is timed without the host's launch cost in front
+SPIN_CYCLES = 2_000_000
+
+
+def timed_turns(fns: dict, reps: int = 20, warm: int = 2) -> dict:
+    """Median CUDA-event ms of each function, the functions called in
+    turns (one call each per round, reps rounds) after warm calls each;
+    each call is enqueued behind a spin of SPIN_CYCLES on the card.  A
+    function of many launches (the plain chain) still waits for the host
+    once the spin has run out: its time is what its launches cost."""
+    for fn in fns.values():
+        for _ in range(warm):
+            fn()
+    torch.cuda.synchronize()
+    evs = {k: [] for k in fns}
+    for _ in range(reps):
+        for k, fn in fns.items():
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            torch.cuda._sleep(SPIN_CYCLES)
+            e0.record()
+            fn()
+            e1.record()
+            evs[k].append((e0, e1))
+    torch.cuda.synchronize()
+    return {k: float(np.median([a.elapsed_time(b) for a, b in v]))
+            for k, v in evs.items()}
+
+
+def prologue_case(label: str, blob: np.ndarray, nb: int, nct: int,
+                  nnzb: int, dense=None) -> dict:
+    """One blob through the prologue kernels on the card (K3 + K4 in the
+    sparse-blob form) and through the plain chain on the card: ops and
+    resid must be equal, exact int32; with the GOP's dense arrays, K4's
+    dense form == _residuals too.  Then each kernel and the plain chain,
+    timed in turns."""
+    from mobiclipdecoder_tpu_torch.ops import prologue_kernels as pk
+    from mobiclipdecoder_tpu_torch.ops.prologue import (
+        blob_sections, unpack_gop_blob, unpack_residuals_sblob)
+    from mobiclipdecoder_tpu_torch.ops.residuals import _residuals, residuals
+    blob_d = torch.from_numpy(blob).cuda()
+    ops_k, resid_k = unpack_residuals_sblob(blob_d, nb, nct, nnzb)
+    ops_p, resid_p = plain_prologue(blob_d, nb, nct, nnzb)
+    err = max(max_err(ops_k, ops_p), max_err(resid_k, resid_p))
+    res = {"B": nb, "nct": nct, "nnzb": nnzb}
+    if dense is not None:
+        coefs_d, sizes_d = (torch.from_numpy(a).cuda() for a in dense[1:])
+        rd_k = residuals(coefs_d, sizes_d)
+        rd_p = _residuals(coefs_d.view(-1, 64), sizes_d.view(-1)).view(
+            rd_k.shape)
+        err = max(err, max_err(rd_k, rd_p), max_err(rd_k, resid_k),
+                  max_err(ops_k.cpu(), torch.from_numpy(dense[0])))
+    if err != 0:
+        raise AssertionError(f"[prologue] {label}: kernels != plain chain, "
+                             f"max abs err {err}")
+    res["max_abs_err"] = err
+    if dense is None:
+        return res
+    ops3, sbits, idx, v32 = blob_sections(blob_d, nb, nct, nnzb)
+    scattered = torch.zeros_like(resid_k)
+    work = torch.empty_like(resid_k)
+    ops_o = torch.empty_like(ops_k)
+    rd_o = torch.empty_like(rd_k)
+    flat_c, flat_s = coefs_d.view(-1, 64), sizes_d.view(-1)
+    pk.scatter_coefs(idx, v32, scattered.view(nb, -1))
+    work.copy_(scattered)
+    res["ms"] = timed_turns({
+        "scatter": lambda: pk.scatter_coefs(idx, v32, scattered.view(nb, -1)),
+        # the transform is data-independent but for the size bits: in
+        # place again and again on a copy of the scattered rows
+        "rows_sblob": lambda: pk.residual_rows_sblob(
+            work.view(-1, 64), ops3, sbits, ops_o.view(-1, 4)),
+        "rows_dense": lambda: pk.residual_rows(flat_c, flat_s,
+                                               rd_o.view(-1, 64)),
+        "kernel_chain": lambda: unpack_residuals_sblob(blob_d, nb, nct,
+                                                       nnzb),
+        "plain_unpack": lambda: unpack_gop_blob(blob_d, nb, nct, nnzb),
+        "plain_residuals": lambda: _residuals(flat_c, flat_s),
+        "plain_chain": lambda: plain_prologue(blob_d, nb, nct, nnzb)})
+    res["work"] = prologue_work(blob, nb, nct, nnzb)
+    return res
+
+
+def prologue_phase(ds, main_gop, wide_futs, smi) -> dict:
+    """[prologue]: the prologue kernels == the plain chain on the card,
+    exact int32, on the blobs of the three geometries at the bench's sizes
+    (and in K4's dense form on their dense arrays), and on a blob of int16
+    extremes with pad, out-of-range and negative indices; each kernel's
+    time, bound and the plain chain's time."""
+    from mobiclipdecoder_tpu_torch.models.oracle_video import MobiclipVersion
+    from mobiclipdecoder_tpu_torch.ops.packing import (_assemble_gop_parts,
+                                                       _part_dense_arrays)
+    mf = MobiclipVersion.MOFLEX_3DS
+    out = {}
+    with phase("prologue"):
+        cases = [(f"{W}x{H}", ds, main_gop, (W, H))]
+        cases += [(f"{size[0]}x{size[1]}", mf, wide_futs[size].result()[0],
+                   size) for size, _nb, _nf in PROLOGUE_WIDE]
+        for label, version, gop, size in cases:
+            parts = scanned_parts(version, gop, size)
+            blob, nct, nnzb = _assemble_gop_parts(parts)
+            r = prologue_case(label, blob, len(parts), nct, nnzb,
+                              _part_dense_arrays(parts))
+            r["F"] = len(gop)
+            out[label] = r
+            ms, wk = r["ms"], r["work"]
+            log(f"[prologue] {label} B={r['B']} F={r['F']} nct={nct} "
+                f"({wk['rows']} rows, {wk['nnz']} nonzeros of nnzb "
+                f"{nnzb} per stream): K3 + K4 == unpack_gop_blob + "
+                f"_residuals on the card, and K4 dense == _residuals, exact "
+                f"int32 (max abs err 0); median of 20 in turns, CUDA events: "
+                f"K3 scatter {ms['scatter']:.4f} ms (bound "
+                f"{wk['scatter']['bound_ms'] * 1e3:.2f} us, "
+                f"{wk['scatter']['bound_by']}), K4 sblob "
+                f"{ms['rows_sblob']:.4f} ms (bound "
+                f"{wk['rows_sblob']['bound_ms'] * 1e3:.2f} us, "
+                f"{wk['rows_sblob']['bound_by']}), K4 dense "
+                f"{ms['rows_dense']:.4f} ms (bound "
+                f"{wk['rows_dense']['bound_ms'] * 1e3:.2f} us); the wrapper "
+                f"(zero fill + K3 + K4) {ms['kernel_chain']:.4f} ms vs the "
+                f"plain chain {ms['plain_chain']:.4f} ms (unpack "
+                f"{ms['plain_unpack']:.4f} + _residuals "
+                f"{ms['plain_residuals']:.4f}) | {smi}")
+        blob, nb, nct, nnzb = extreme_blob(17)
+        out["extremes"] = prologue_case("extremes", blob, nb, nct, nnzb)
+        log(f"[prologue] int16 extremes, pad, out-of-range and negative "
+            f"indices (B={nb}, nct={nct}): K3 + K4 == the plain chain, "
+            f"exact int32 | {smi}")
+    return out
+
+
+STAGE_NAMES = ("host scan", "assemble blob", "upload blob",
+               "scatter (zero fill + K3)", "rows + op widening (K4)",
+               "executor", "download", "plain unpack blob",
+               "plain residuals")
+DEVICE_STAGES = ("scatter (zero fill + K3)", "rows + op widening (K4)",
+                 "executor", "download")
+
+
 def stage_breakdown(version, gop, reps=10) -> dict:
     """Median ms of each stage of one fused GOP dispatch (B streams, F
     frames), run stage by stage with a sync between stages: host stages
-    on the host clock, device stages with CUDA events."""
-    from mobiclipdecoder_tpu_torch.ops import executor
+    on the host clock, device stages with CUDA events.  The prologue runs
+    as the decode runs it (the zero fill and K3, then K4 in place); the
+    plain chain's two stages (unpack_gop_blob, _residuals) run after it
+    on the same blob, in each repetition, and are not part of the
+    dispatch."""
+    from mobiclipdecoder_tpu_torch.ops import executor, prologue_kernels
     from mobiclipdecoder_tpu_torch.ops.packing import (CHUNK,
                                                        _assemble_gop_parts,
                                                        _gop_part)
-    from mobiclipdecoder_tpu_torch.ops.prologue import (crop_frames,
+    from mobiclipdecoder_tpu_torch.ops.prologue import (blob_sections,
+                                                        crop_frames,
                                                         unpack_gop_blob)
     from mobiclipdecoder_tpu_torch.ops.residuals import _residuals
     from mobiclipdecoder_tpu_torch.ops.vmem_engine import VmemBatchDecoder
@@ -503,8 +760,7 @@ def stage_breakdown(version, gop, reps=10) -> dict:
     per = [[fr[b] for fr in gop] for b in range(B)]
     hhs = H + H // 2
     host = torch.empty((F, B, hhs, 256), dtype=torch.uint8, pin_memory=True)
-    names = ("host scan", "assemble blob", "upload blob", "unpack blob",
-             "residuals", "executor", "download")
+    names = STAGE_NAMES
     times = {k: [] for k in names}
     for _ in range(reps):
         for nv in dec.natives:
@@ -520,21 +776,33 @@ def stage_breakdown(version, gop, reps=10) -> dict:
         blob_d = dec._upload(blob)
         torch.cuda.synchronize()
         t3 = time.perf_counter()
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(8)]
         ev[0].record()
-        ops, coefs, sizes = unpack_gop_blob(blob_d, B, nct, nnzb)
+        ops3, sbits, idx, v32 = blob_sections(blob_d, B, nct, nnzb)
+        resid = torch.zeros((B, nct, CHUNK, 64), dtype=torch.int32,
+                            device=blob_d.device)
+        ops = torch.empty((B, nct, CHUNK, 4), dtype=torch.int32,
+                          device=blob_d.device)
+        prologue_kernels.scatter_coefs(idx, v32, resid.view(B, -1))
         ev[1].record()
-        resid = _residuals(coefs.reshape(-1, 64), sizes.reshape(-1)).view(
-            B, nct, CHUNK, 64)
+        prologue_kernels.residual_rows_sblob(resid.view(-1, 64), ops3, sbits,
+                                             ops.view(-1, 4))
         ev[2].record()
         frames = executor.run_gop(ops, resid, dec.ring, F, H, 256)
         ev[3].record()
         host.copy_(crop_frames(frames, H, 256), non_blocking=True)
         ev[4].record()
         torch.cuda.synchronize()
+        ev[5].record()
+        _o, coefs, sizes = unpack_gop_blob(blob_d, B, nct, nnzb)
+        ev[6].record()
+        _residuals(coefs.reshape(-1, 64), sizes.reshape(-1))
+        ev[7].record()
+        torch.cuda.synchronize()
         for k, v in zip(names, [(t1 - t0) * 1e3, (t2 - t1) * 1e3,
                                 (t3 - t2) * 1e3]
-                        + [ev[i].elapsed_time(ev[i + 1]) for i in range(4)]):
+                        + [ev[i].elapsed_time(ev[i + 1]) for i in range(4)]
+                        + [ev[i].elapsed_time(ev[i + 1]) for i in (5, 6)]):
             times[k].append(v)
     return {k: float(np.median(v)) for k, v in times.items()}
 
@@ -710,6 +978,7 @@ def transcode_case(tmp: Path, name: str, blob: bytes, suffix: str,
     zero_counts()
     st = cli(["decode", str(src), str(tmp / f"{name}_cuda")])
     launches = read_counts()
+    pro = read_prologue_counts()
     if sum(launches) < 1:
         raise AssertionError(f"{name}: the cuda engine launched no kernel")
     planes = check_plane_form(name, h, width_stride(w))
@@ -729,6 +998,7 @@ def transcode_case(tmp: Path, name: str, blob: bytes, suffix: str,
     if st["frames"] != so["frames"] or st["frames"] != TRANSCODE_FRAMES:
         raise AssertionError(f"{name}: {st['frames']} vs {so['frames']}")
     return {"stats": st, "oracle": so, "launches": launches,
+            "prologue": pro,
             "planes": planes, "src": src, "oracle_bytes": outs["oracle"],
             "files": {k: len(v) for k, v in outs["cuda"].items()}}
 
@@ -1134,6 +1404,7 @@ def sharded_case(label, devices, gops_packed, h, S, want_frames, want_ring,
         got.append(gather_shards(yuvs))
     sync_all()
     launches = read_counts()
+    pro = read_prologue_counts()
     planes = check_plane_form(f"sharded {label}", h, S)
     if launches != (len(devices) * len(gops_packed), 0):
         raise AssertionError(f"[sharded] {label}: launches {launches}")
@@ -1155,7 +1426,8 @@ def sharded_case(label, devices, gops_packed, h, S, want_frames, want_ring,
         f"on cuda:0, host clock after syncing every card, mean of 5): "
         f"sharded {ms:.3f} vs one launch on cuda:0 {ms_one:.3f} | {smi}")
     return {"devices": list(devices), "B": nb, "F": nf,
-            "launches": launches[0], "planes": planes, "ms_per_gop": ms,
+            "launches": launches[0], "prologue": pro, "planes": planes,
+            "ms_per_gop": ms,
             "ms_per_gop_one_device": ms_one}
 
 
@@ -1255,6 +1527,7 @@ def entry_phase(ds, smi) -> dict:
         sync_all()
         t_dry = time.perf_counter() - t0
         launches = read_counts()
+        pro = read_prologue_counts()
         if launches[0] < 1 or launches[1] < 1:
             raise AssertionError(f"[entry] dryrun_multichip launches "
                                  f"{launches}")
@@ -1262,7 +1535,8 @@ def entry_phase(ds, smi) -> dict:
         log(f"[entry] entry('cuda') fn(*args) {tuple(got.shape)} int32 == "
             f"the oracle's 64x48 I-frame; {line} ({t_dry:.1f} s; launches "
             f"whole-GOP {launches[0]}, single-frame {launches[1]}) | {smi}")
-    return {"dryrun_s": t_dry, "launches": launches, "devices": devs}
+    return {"dryrun_s": t_dry, "launches": launches, "prologue": pro,
+            "devices": devs}
 
 
 def warm_phase(smi) -> dict:
@@ -1278,10 +1552,11 @@ def warm_phase(smi) -> dict:
             r = warm_kernels.warm([g], batch=2, frames=8, device="cuda")
             sync_all()
             launches = read_counts()
+            pro = read_prologue_counts()
             if launches != (1, min(2, r[g]["frames"])):
                 raise AssertionError(f"[warm] {g}: launches {launches}")
             res[g] = {"gop_s": r[g]["gop_s"], "frames_s": r[g]["frames_s"],
-                      "launches": launches,
+                      "launches": launches, "prologue": pro,
                       "builds": {k: v["s"] for k, v in r["builds"].items()}}
         total = time.perf_counter() - t0
         log(f"[warm] warm_kernels {' '.join(res)} --batch 2 --frames 8 with "
@@ -1479,6 +1754,8 @@ def trace_phase(ds, gops, k1_outs, smi) -> dict:
                                  "the decode_gops window")
         wall_ms = (w1 - w0) / 1e3
         share = busy_us / 1e3 / wall_ms
+        per_gop = {k: busy_union(v, w0, w1)[1] / TRACE_GOPS
+                   for k, v in kinds.items()}
         log(f"[trace] decode_gops of {TRACE_GOPS} GOPs (B={B}, F={F}) under "
             f"torch.profiler (CPU + CUDA activity): host ms per GOP "
             + ", ".join(f"{k} {v['ms_per_gop']:.3f} ({v['spans']} spans)"
@@ -1487,11 +1764,14 @@ def trace_phase(ds, gops, k1_outs, smi) -> dict:
             f"busy under the profiler {busy_us / 1e3:.3f} of {wall_ms:.3f} "
             f"ms = {share:.3f} of the wall (union of "
             + ", ".join(f"{len(v)} {k}" for k, v in kinds.items())
-            + f" intervals); wall per GOP {wall_ms / TRACE_GOPS:.3f} ms "
+            + f" intervals); device activities per GOP in the window: "
+            + ", ".join(f"{k} {v:.2f}" for k, v in per_gop.items())
+            + f"; wall per GOP {wall_ms / TRACE_GOPS:.3f} ms "
             f"traced vs {untraced_ms / TRACE_GOPS:.3f} untraced | {smi}")
     return {"spans": spans, "busy_ms": busy_us / 1e3, "wall_ms": wall_ms,
             "busy_share": share, "untraced_wall_ms": untraced_ms,
-            "device_activities": {k: len(v) for k, v in kinds.items()}}
+            "device_activities": {k: len(v) for k, v in kinds.items()},
+            "per_gop": per_gop}
 
 
 def bench_phase(gops, k1_outs, main_oracle, smi) -> dict:
@@ -1506,6 +1786,7 @@ def bench_phase(gops, k1_outs, main_oracle, smi) -> dict:
                                 frames=gops[0])
         sync_all()
         launches = read_counts()
+        pro = read_prologue_counts()
         if not np.array_equal(e2e, k1_outs[0]):
             raise AssertionError("[bench] the e2e GOP differs from the main "
                                  "path's")
@@ -1518,9 +1799,10 @@ def bench_phase(gops, k1_outs, main_oracle, smi) -> dict:
         log(f"[bench] bench.run(device='cuda'): its e2e GOP == the main "
             f"path's K1 frames and the oracle on streams "
             f"{sorted(main_oracle)}; launches whole-GOP {launches[0]}, "
-            f"single-frame {launches[1]} | {smi}")
+            f"single-frame {launches[1]}; prologue K3 {pro[0]}, K4 {pro[1]} "
+            f"| {smi}")
         log("[bench] " + json.dumps(report))
-    return {"report": report, "launches": launches}
+    return {"report": report, "launches": launches, "prologue": pro}
 
 
 def scaling_phase(ds, gops, k1_outs, smi, devices=None) -> dict:
@@ -1540,6 +1822,7 @@ def scaling_phase(ds, gops, k1_outs, smi, devices=None) -> dict:
                                          frames=F, gop=gop)
         sync_all()
         launches = read_counts()
+        pro = read_prologue_counts()
         worker_launches = {}
         for n, w in outs["workers"].items():
             worker_launches[n] = [r["launches"] for r in w["results"]]
@@ -1562,7 +1845,7 @@ def scaling_phase(ds, gops, k1_outs, smi, devices=None) -> dict:
             f"output; launches: mesh (this process) {launches[0]}, workers "
             f"{worker_launches} | {smi}")
         log("[scaling] " + json.dumps(report))
-    return {"report": report, "launches": launches,
+    return {"report": report, "launches": launches, "prologue": pro,
             "worker_launches": worker_launches}
 
 
@@ -1574,13 +1857,16 @@ def main(argv=None) -> int:
               "false); there is no CPU path", file=sys.stderr)
         return 1
     from mobiclipdecoder_tpu_torch.models.oracle_video import MobiclipVersion
-    from mobiclipdecoder_tpu_torch.ops import executor
+    from mobiclipdecoder_tpu_torch.ops import executor, prologue_kernels
     from mobiclipdecoder_tpu_torch.ops.vmem_engine import (VmemBatchDecoder,
                                                            VmemVideoDecoder)
     from mobiclipdecoder_tpu_torch.ops.residuals import _residuals
     from mobiclipdecoder_tpu_torch.parallel.distributed import run_worker
     from mobiclipdecoder_tpu_torch.utils import build
     t_start = time.perf_counter()
+    multi = "--multi-device" in args
+    ds = MobiclipVersion.MODS_DS
+    mf = MobiclipVersion.MOFLEX_3DS
 
     # 1. device
     name = torch.cuda.get_device_name(0)
@@ -1588,26 +1874,39 @@ def main(argv=None) -> int:
     log(f"[device] {name} | count {torch.cuda.device_count()} | "
         f"torch {torch.__version__} cuda {torch.version.cuda} | {smi}")
 
-    # 2. build
+    # [prologue]'s wide GOPs, synthesized in spawned processes meanwhile
+    syn_pool = None
+    if not multi:
+        syn_pool = _cf.ProcessPoolExecutor(
+            max_workers=len(PROLOGUE_WIDE),
+            mp_context=multiprocessing.get_context("spawn"))
+        wide_futs = {size: syn_pool.submit(synth_gops, mf, range(nb), 1, nf,
+                                           size)
+                     for size, nb, nf in PROLOGUE_WIDE}
+
+    # 2. build: one nvcc per kernel source, started together
     t0 = time.perf_counter()
-    executor._load()
-    built = build.build_seconds.get("gop_executor")
-    log(f"[build] gop_executor.cu: "
-        + (f"nvcc {built:.2f} s" if built is not None
-           else "already built in csrc/build")
-        + f", load {time.perf_counter() - t0:.2f} s")
-    for line in build.build_logs.get("gop_executor", "").splitlines():
-        if line.strip():
-            log(f"[build] {line.strip()}")
+    with _cf.ThreadPoolExecutor(2) as tp:
+        for fut in [tp.submit(executor._load),
+                    tp.submit(prologue_kernels._load)]:
+            fut.result()
+    t_load = time.perf_counter() - t0
+    for lib in ("gop_executor", "prologue"):
+        built = build.build_seconds.get(lib)
+        log(f"[build] {lib}.cu: "
+            + (f"nvcc {built:.2f} s" if built is not None
+               else "already built in csrc/build")
+            + f"; both loaded in {t_load:.2f} s")
+        for line in build.build_logs.get(lib, "").splitlines():
+            if line.strip():
+                log(f"[build] {line.strip()}")
 
     # workload: 8 DS streams x 2 GOPs; streams 0-1 of GOP 1 feed phase 3
-    ds = MobiclipVersion.MODS_DS
-    mf = MobiclipVersion.MOFLEX_3DS
     t0 = time.perf_counter()
     gops = synth_gops(ds, range(B), NGOPS, F)
     log(f"[workload] synthesized {B} DS streams x {NGOPS} GOPs x {F} frames "
         f"in {time.perf_counter() - t0:.1f} s")
-    if "--multi-device" in args:
+    if multi:
         return multi_device_run(ds, mf, gops, smi, t_start)
 
     # 3. kernel vs plain
@@ -1617,6 +1916,8 @@ def main(argv=None) -> int:
                                         "Moflex 256x192", 2)
         err, k_first_ms, plain_ms, main_inputs = kernel_vs_plain(
             ds, gops[0], "DS 256x192 main-path shape", 3)
+    prologue = prologue_phase(ds, gops[0], wide_futs, smi)
+    syn_pool.shutdown()
     if kernel_only:
         with phase("kernel_only"):
             for size in WIDE:
@@ -1639,8 +1940,10 @@ def main(argv=None) -> int:
         outs = list(dec.decode_gops(iter(gops)))
         wall = time.perf_counter() - t0
         launches, _f1 = read_counts()
-        if launches < 1:
-            raise AssertionError("main path launched no executor kernel")
+        main_pro = read_prologue_counts()
+        if launches < 1 or min(main_pro) < 1:
+            raise AssertionError(f"main path launches: executor {launches}, "
+                                 f"prologue {main_pro}")
         main_planes = check_plane_form("main path", H, 256)
         for g, out in enumerate(outs):
             if out.shape != (F, B, H + H // 2, 256) or out.dtype != np.uint8:
@@ -1660,7 +1963,8 @@ def main(argv=None) -> int:
             f"{len(outs)} x {outs[0].shape} uint8; streams 0-1 equal the "
             f"oracle on {NGOPS * F} frames each (oracle "
             f"{time.perf_counter() - t0:.1f} s); executor launches "
-            f"{launches}; wall {wall:.2f} s incl. warm-up")
+            f"{launches}, prologue K3 {main_pro[0]}, K4 {main_pro[1]}; wall "
+            f"{wall:.2f} s incl. warm-up")
 
     # 5. per-frame path: 8 frames as one chunk, then 2 single-frame
     # launches (the per-round form)
@@ -1672,6 +1976,7 @@ def main(argv=None) -> int:
         yuv, offs, err_i = vd.decode_stream_chunk(pkts[:8])
         rest = [np.concatenate(vd.decode_frame(p)) for p in pkts[8:]]
         pf_launches = read_counts()
+        pf_pro = read_prologue_counts()
         check_plane_form("per-frame path", H, 256)
         if err_i is not None or yuv.shape[0] != 8 or offs != [
                 len(p) for p in pkts[:8]]:
@@ -1687,7 +1992,8 @@ def main(argv=None) -> int:
                                  f"differ")
         log(f"[per_frame] decode_stream_chunk(8) + decode_frame x2 equal the "
             f"oracle on 10 frames; launches: whole-GOP {pf_launches[0]}, "
-            f"single-frame {pf_launches[1]}")
+            f"single-frame {pf_launches[1]}, prologue K3 {pf_pro[0]}, K4 "
+            f"{pf_pro[1]}")
 
     # 6. timing
     with phase("timing"):
@@ -1716,11 +2022,11 @@ def main(argv=None) -> int:
                         f"per stream = {v['ns_per_op']:.1f} ns/op"
                         for k, v in forms.items()) + f" | {smi}")
         stages = stage_breakdown(ds, gops[0])
-        dev_ms = sum(stages[k] for k in ("unpack blob", "residuals",
-                                         "executor", "download"))
+        dev_ms = sum(stages[k] for k in DEVICE_STAGES)
         log("[stages] one GOP B=8 F=24, stage by stage, median of 10: "
             + ", ".join(f"{k} {v:.3f} ms" for k, v in stages.items())
-            + f"; device stages {dev_ms:.3f} ms | {smi}")
+            + f"; device stages (the prologue kernels, executor, download) "
+            f"{dev_ms:.3f} ms | {smi}")
         rates = sustained(ds, gops)
         med = float(np.median(rates))
         log(f"[sustained] decode_gops {SUSTAIN_GOPS} GOPs x {F * B} frames "
@@ -1858,6 +2164,7 @@ def main(argv=None) -> int:
         sc = run_worker(files, tmp / "cuda", engine="cuda", batch=B)
         t_cuda = time.perf_counter() - t0
         batch_launches = read_counts()
+        batch_pro = read_prologue_counts()
         check_plane_form("batch", H, 256)
         t0 = time.perf_counter()
         so = run_worker(files, tmp / "oracle", engine="oracle")
@@ -1971,12 +2278,60 @@ def main(argv=None) -> int:
                             "plain_ms": v["plain_ms"],
                             "fixed_ms_per_frame": v["fixed_ms_per_frame"],
                             **facts(v["facts"])} for k, v in k2.items()}})
+    # the prologue kernels: launches on every path that reaches them (K3
+    # only where a sparse blob is uploaded; the sharded paths, the entry
+    # dry run and the scaling mesh upload dense arrays), times and bounds
+    # from [prologue] at the main path's geometry, every geometry beside
+    pro_paths = {"main_path": main_pro, "per_frame": pf_pro,
+                 **{f"transcode_{c}": r["prologue"] for c, r in trans.items()},
+                 "batch": batch_pro, "bench": benched["prologue"],
+                 **{f"warm_{g}": r["prologue"] for g, r in warm.items()
+                    if isinstance(r, dict)}}
+    dense_paths = {**{f"sharded_{g}": r["prologue"]
+                      for g, r in sharded.items() if isinstance(r, dict)},
+                   "dryrun_multichip_32x32": entry_res["prologue"],
+                   "scaling": scaling["prologue"]}
+    pro_src = "mobiclipdecoder_tpu_torch/csrc/prologue.cu"
+    pro_err = max(v["max_abs_err"] for v in prologue.values())
+    main_pc = prologue[f"{W}x{H}"]
+
+    def pro_entry(name, kind, replaces, paths, plain, plain_what, extra):
+        wk = main_pc["work"][kind]
+        return {
+            "name": name, "route": "cuda", "source": pro_src,
+            "replaces": replaces, "launches": sum(paths.values()),
+            "launches_by_path": paths, "max_abs_err": pro_err,
+            "ms": main_pc["ms"][kind], "plain_ms": main_pc["ms"][plain],
+            "bound_ms": wk["bound_ms"], "bound_by": wk["bound_by"],
+            "library_ms": None, "plain_on": "card", "plain": plain_what,
+            "shape": f"B={B} F={F} {W}x{H}", **extra,
+            "by_geometry": {g: {"B": prologue[g]["B"], "F": prologue[g]["F"],
+                                "ms": prologue[g]["ms"][kind],
+                                "plain_ms": prologue[g]["ms"][plain],
+                                **prologue[g]["work"][kind]}
+                            for g in prologue if g != "extremes"}}
+    kernels.append(pro_entry(
+        "prologue_scatter", "scatter",
+        "mobiclipdecoder_tpu/ops/vmem_engine.py:1607 (XLA)",
+        {k: v[0] for k, v in pro_paths.items()}, "plain_unpack",
+        "unpack_gop_blob (the whole unpack: op widening, scatter, size "
+        "bits)", {"nnz": main_pc["work"]["nnz"]}))
+    kernels.append(pro_entry(
+        "prologue_rows", "rows_sblob",
+        "mobiclipdecoder_tpu/ops/vmem_engine.py:215 (XLA)",
+        {k: v[1] for k, v in {**pro_paths, **dense_paths}.items()},
+        "plain_residuals", "_residuals",
+        {"dense_form": {"ms": main_pc["ms"]["rows_dense"],
+                        **main_pc["work"]["rows_dense"]},
+         "wrapper_ms": main_pc["ms"]["kernel_chain"],
+         "plain_chain_ms": main_pc["ms"]["plain_chain"]}))
     for kern in kernels:
         if min(kern["launches_by_path"].values()) < 1:
             raise AssertionError(f"{kern['name']} {kern.get('geometry')}: "
                                  f"a path launched it no time: "
                                  f"{kern['launches_by_path']}")
-    log("[paths] " + json.dumps({"wavefront": wavefront, "encode": encoded,
+    log("[paths] " + json.dumps({"prologue": prologue,
+                                 "wavefront": wavefront, "encode": encoded,
                                  "audio": audio, "sharded": sharded,
                                  "entry": entry_res, "warm": warm,
                                  "multi_gpu": multi_gpu, "trace": traced,

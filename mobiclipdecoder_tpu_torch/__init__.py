@@ -1,8 +1,9 @@
 """mobiclipdecoder_tpu_torch: the Mobiclip decoder's whole-GOP decode path
-ported to PyTorch, with its executor as a hand-written CUDA kernel for
-NVIDIA Hopper (sm_90a), at DS 256x192, 3DS 400x240 and Wii 640x480; and
-the rest of the JAX package's device code (the wavefront engine, the
-encoder's SAD volume, the batched audio ops) as plain torch on the card.
+ported to PyTorch, with its executor and its device prologue as
+hand-written CUDA kernels for NVIDIA Hopper (sm_90a), at DS 256x192, 3DS
+400x240 and Wii 640x480; and the rest of the JAX package's device code
+(the wavefront engine, the encoder's SAD volume, the batched audio ops) as
+plain torch on the card.
 
 The JAX package ``mobiclipdecoder_tpu`` is the reference this port is held
 against; the port imports nothing of it.  The codec's host modules (oracle
@@ -28,8 +29,13 @@ Layers, from the entry point down:
                        dispatch, download); decode_gop_fused_sharded /
                        decode_round_sharded over a device list
   ops/packing.py       numpy packing of scanned op streams into one blob
-  ops/prologue.py      blob -> (ops, coefs, sizes) on the device
-  ops/residuals.py     IDCT pre-pass (plain torch)
+  ops/prologue.py      blob -> (ops, resid) on the device: the prologue
+                       kernels' wrapper (ops/prologue_kernels.py,
+                       csrc/prologue.cu: coefficient scatter, then the IDCT
+                       pre-pass with the op widening) or, on the CPU, the
+                       plain versions
+  ops/residuals.py     IDCT pre-pass of dense rows: the same kernel's
+                       wrapper, and its plain version _residuals
   ops/executor.py      the executor kernel's wrapper (csrc/gop_executor.cu);
                        ops/executor_ref.py is its plain PyTorch version
   state.py             reference-ring layout and the kernel's intra tables

@@ -1,16 +1,25 @@
-"""Device prologue and epilogue of a whole-GOP decode (plain torch).
+"""Device prologue and epilogue of a whole-GOP decode.
 
 Ports of ``_unpack_ops3`` and the unpack part of ``_decode_gop_fused_sblob``
 (blob -> ops, coefs, sizes), the ring renormalization and the crops of
 ``_decode_gop_fused`` / ``_crop_gop_yuv`` in
-``mobiclipdecoder_tpu/ops/vmem_engine.py``.  They run on the device the
-blob lies on.
+``mobiclipdecoder_tpu/ops/vmem_engine.py``.
+
+``unpack_residuals_sblob`` is the prologue the decode runs: blob -> (ops,
+resid), the executor's inputs.  On a CUDA blob it launches the two
+prologue kernels (``ops/prologue_kernels.py``: the coefficient scatter,
+then the row transform with the op widening); on a CPU blob it runs the
+plain versions, ``unpack_gop_blob`` and ``ops/residuals.py``
+``_residuals``.  The other functions here are plain torch and run on the
+device their input lies on.
 """
 from __future__ import annotations
 
 import torch
 
+from . import prologue_kernels
 from .packing import CHUNK, MCOL, MR, _geom
+from .residuals import _residuals
 
 
 def _unpack_ops3(p3: torch.Tensor) -> torch.Tensor:
@@ -26,6 +35,24 @@ def _unpack_ops3(p3: torch.Tensor) -> torch.Tensor:
     return torch.stack([w0, w1, p3[..., 2], w3], dim=-1)
 
 
+def blob_sections(blob: torch.Tensor, B: int, nct: int, nnzb: int) -> tuple:
+    """Views of the sparse upload blob's sections: (ops3 (B*nct*CHUNK, 3),
+    size-bit words, idx (B, nnzb), v32 (B, nnzb / 2)).  Raises unless the
+    blob is a 1-D contiguous int32 tensor that holds them all."""
+    nrows = B * nct * CHUNK
+    a = nrows * 3
+    b = a + (nrows + 31) // 32
+    c = b + B * nnzb
+    if (blob.dtype != torch.int32 or blob.dim() != 1
+            or not blob.is_contiguous() or nnzb % 2 or B < 1 or nct < 1
+            or blob.numel() < c + B * nnzb // 2):
+        raise ValueError(f"blob {blob.dtype} {tuple(blob.shape)} (contiguous "
+                         f"{blob.is_contiguous()}) does not hold the sections "
+                         f"of B={B}, nct={nct}, nnzb={nnzb} (nnzb even)")
+    return (blob[:a].view(nrows, 3), blob[a:b], blob[b:c].view(B, nnzb),
+            blob[c:c + B * nnzb // 2].view(B, nnzb // 2))
+
+
 def unpack_gop_blob(blob: torch.Tensor, B: int, nct: int,
                     nnzb: int) -> tuple:
     """Sparse upload blob [ops3 | size bits | idx (B, nnzb) | val16 pairs]
@@ -33,15 +60,10 @@ def unpack_gop_blob(blob: torch.Tensor, B: int, nct: int,
     sizes (B, nct, CHUNK)), all int32 on the blob's device."""
     nrows = B * nct * CHUNK
     rows = nct * CHUNK
-    a = nrows * 3
-    nsb = (nrows + 31) // 32
-    b = a + nsb
-    c = b + B * nnzb
-    ops = _unpack_ops3(blob[:a].view(B, nct, CHUNK, 3))
-    sbits = blob[a:b]
-    idx = blob[b:c].view(B, nnzb).long()
+    ops3, sbits, idx, v32 = blob_sections(blob, B, nct, nnzb)
+    ops = _unpack_ops3(ops3.view(B, nct, CHUNK, 3))
+    idx = idx.long()
     # two little-endian int16 values per int32 word
-    v32 = blob[c:c + B * nnzb // 2].view(B, nnzb // 2)
     lo = ((v32 & 0xFFFF) ^ 0x8000) - 0x8000
     hi = v32 >> 16
     val = torch.stack([lo, hi], dim=2).view(B, nnzb)
@@ -56,6 +78,30 @@ def unpack_gop_blob(blob: torch.Tensor, B: int, nct: int,
     bit = (sbits[ar // 32] >> (ar % 32)) & 1
     sizes = torch.where(bit == 1, 4, 8).to(torch.int32).view(B, nct, CHUNK)
     return ops, coefs, sizes
+
+
+def unpack_residuals_sblob(blob: torch.Tensor, B: int, nct: int,
+                           nnzb: int) -> tuple:
+    """Sparse upload blob -> (ops (B, nct, CHUNK, 4), resid (B, nct, CHUNK,
+    64)) int32 on the blob's device: ``unpack_gop_blob`` followed by
+    ``_residuals``.  A CUDA blob takes the kernels (K3 scatters the
+    nonzeros into a zeroed resid, K4 transforms its rows in place and
+    widens the op rows), or raises; a CPU blob takes the plain versions."""
+    ops3, sbits, idx, v32 = blob_sections(blob, B, nct, nnzb)
+    if blob.device.type == "cpu":
+        ops, coefs, sizes = unpack_gop_blob(blob, B, nct, nnzb)
+        resid = _residuals(coefs.reshape(-1, 64), sizes.reshape(-1))
+        return ops, resid.view(B, nct, CHUNK, 64)
+    if blob.device.type != "cuda":
+        raise ValueError(f"no prologue for device {blob.device}")
+    resid = torch.zeros((B, nct, CHUNK, 64), dtype=torch.int32,
+                        device=blob.device)
+    ops = torch.empty((B, nct, CHUNK, 4), dtype=torch.int32,
+                      device=blob.device)
+    prologue_kernels.scatter_coefs(idx, v32, resid.view(B, -1))
+    prologue_kernels.residual_rows_sblob(resid.view(-1, 64), ops3, sbits,
+                                         ops.view(-1, 4))
+    return ops, resid
 
 
 def renormalize_ring(ring: torch.Tensor, F: int) -> torch.Tensor:

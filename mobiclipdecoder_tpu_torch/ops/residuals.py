@@ -1,15 +1,20 @@
-"""IDCT pre-pass: coefficient rows -> spatial residual rows (plain torch).
+"""IDCT pre-pass: coefficient rows -> spatial residual rows.
 
 Port of ``_btf8_ax0`` / ``_btf4_ax0`` / ``_residuals`` in
-``mobiclipdecoder_tpu/ops/vmem_engine.py``.  The JAX package runs this as
-XLA code outside its Pallas kernel, so it stays plain int32 tensor code
-here; it runs on whatever device its input lies on.  Integer shifts on
-int32 tensors are arithmetic, as in the reference (MobiclipDecoder.cs
+``mobiclipdecoder_tpu/ops/vmem_engine.py``, which the JAX package runs as
+XLA code outside its Pallas kernel.  ``residuals`` is the pre-pass the
+decode runs: on CUDA tensors it launches the row-transform kernel
+(``ops/prologue_kernels.py`` ``residual_rows``, csrc/prologue.cu) or
+raises; on CPU tensors it runs ``_residuals``, the plain int32 tensor
+version, which runs on whatever device its input lies on.  Integer shifts
+on int32 tensors are arithmetic, as in the reference (MobiclipDecoder.cs
 :3450-3505 and :3728-3784).
 """
 from __future__ import annotations
 
 import torch
+
+from . import prologue_kernels
 
 
 def _btf8_ax0(c: torch.Tensor) -> torch.Tensor:
@@ -71,3 +76,31 @@ def _residuals(flat: torch.Tensor, sizes_flat: torch.Tensor) -> torch.Tensor:
     rq = rq4.reshape(2, 2, 4, 4, N).permute(0, 2, 1, 3, 4).reshape(8, 8, N)
     resid = torch.where((sizes_flat == 4)[None, None, :], rq, r8)
     return resid.permute(2, 0, 1).reshape(N, 64).contiguous()
+
+
+def residuals(coefs: torch.Tensor, sizes: torch.Tensor) -> torch.Tensor:
+    """coefs (..., 64) int32 and sizes int32 in {4, 8}, one per row of
+    coefs in any shape ((B, nct, CHUNK) or (B, nct * CHUNK)), contiguous
+    and on one device -> resid of coefs' shape: ``_residuals`` of the
+    rows.  CUDA tensors take the kernel, or the call raises; CPU tensors
+    take the plain version."""
+    for name, t in (("coefs", coefs), ("sizes", sizes)):
+        if t.dtype != torch.int32 or not t.is_contiguous():
+            raise ValueError(f"{name}: expected a contiguous int32 tensor, "
+                             f"got {t.dtype} (contiguous "
+                             f"{t.is_contiguous()})")
+    if (coefs.dim() < 1 or coefs.shape[-1] != 64
+            or sizes.numel() * 64 != coefs.numel()):
+        raise ValueError(f"coefs {tuple(coefs.shape)}, sizes "
+                         f"{tuple(sizes.shape)}: expected (..., 64) and one "
+                         f"size per row")
+    if sizes.device != coefs.device:
+        raise ValueError(f"sizes on {sizes.device}, coefs on {coefs.device}")
+    flat, sizes_flat = coefs.view(-1, 64), sizes.view(-1)
+    if coefs.device.type == "cpu":
+        return _residuals(flat, sizes_flat).view(coefs.shape)
+    if coefs.device.type != "cuda":
+        raise ValueError(f"no IDCT pre-pass for device {coefs.device}")
+    resid = torch.empty_like(coefs)
+    prologue_kernels.residual_rows(flat, sizes_flat, resid.view(-1, 64))
+    return resid

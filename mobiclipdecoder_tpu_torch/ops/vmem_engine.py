@@ -4,10 +4,14 @@
 B independent streams decode in lockstep.  Per GOP the host C++ scanner
 (``utils/native.py`` over the repository's ``native/scanner.cpp``) emits one packed part
 per stream; ``ops/packing.py`` assembles them into one int32 blob, which is
-uploaded once; on the device the prologue (``ops/prologue.py``) unpacks
-it, ``ops/residuals.py`` runs the IDCT pre-pass, and ONE executor launch
-(``ops/executor.py``) decodes the whole GOP for every stream against the
-6-slot reference ring, which stays on the device across GOPs.
+uploaded once; on the device the prologue (``ops/prologue.py``
+``unpack_residuals_sblob``: two kernels on the card, the coefficient
+scatter and the IDCT pre-pass with the op widening) turns it into the
+executor's inputs, and ONE executor launch (``ops/executor.py``) decodes
+the whole GOP for every stream against the 6-slot reference ring, which
+stays on the device across GOPs.  Dense inputs take the pre-pass kernel
+alone (``ops/residuals.py`` ``residuals``); CPU tensors take the plain
+versions throughout.
 
 Every decode, single frames included, goes through this fused path (a
 single frame is a GOP of one).  The stages carry the JAX engine's trace
@@ -38,31 +42,39 @@ from .packing import (CHUNK, _assemble_gop_parts, _frame_chunk_spans,
                       _gop_part, _pack_gop_blob_sparse, _pack_gop_chunks,
                       _part_dense_arrays, _split_gop_part)
 from .prologue import (crop_frames, crop_gop_yuv, renormalize_ring,
-                       unpack_gop_blob)
-from .residuals import _residuals
+                       unpack_residuals_sblob)
+from .residuals import residuals
 
 
-def _decode_gop_fused(ring, ops, coefs, sizes, F: int, H: int, S: int):
-    """Whole-GOP decode as ONE executor launch.
-
-    ops (B, NCT, CHUNK, 4) packed chunk stream; coefs (B, NCT, CHUNK, 64);
-    sizes (B, NCT, CHUNK); ring (B, 6, R, SP) uint8, updated in place.
-    Returns (ring renormalized to slot 0 = newest, yuv (F, B, HH, S)
-    uint8), both on the ring's device."""
-    B, nct = ops.shape[:2]
-    resid = _residuals(coefs.reshape(-1, 64),
-                       sizes.reshape(-1)).view(B, nct, CHUNK, 64)
+def _decode_gop_resid(ring, ops, resid, F: int, H: int, S: int):
+    """ONE executor launch on the executor's inputs: ops (B, NCT, CHUNK,
+    4), resid (B, NCT, CHUNK, 64) spatial residual rows; ring (B, 6, R,
+    SP) uint8, updated in place.  Returns (ring renormalized to slot 0 =
+    newest, yuv (F, B, HH, S) uint8), both on the ring's device."""
     frames = executor.run_gop(ops.contiguous(), resid, ring, F, H, S)
     if (5 - (F - 1)) % 6:
         ring = renormalize_ring(ring, F)
     return ring, crop_frames(frames, H, S)
 
 
+def _decode_gop_fused(ring, ops, coefs, sizes, F: int, H: int, S: int):
+    """Whole-GOP decode of dense inputs: the IDCT pre-pass, then ONE
+    executor launch.
+
+    ops (B, NCT, CHUNK, 4) packed chunk stream; coefs (B, NCT, CHUNK, 64);
+    sizes (B, NCT, CHUNK); ring (B, 6, R, SP) uint8, updated in place.
+    Returns (ring renormalized to slot 0 = newest, yuv (F, B, HH, S)
+    uint8), both on the ring's device."""
+    resid = residuals(coefs.contiguous(), sizes.contiguous())
+    return _decode_gop_resid(ring, ops, resid, F, H, S)
+
+
 def _decode_gop_fused_sblob(ring, blob, F: int, nct: int, nnzb: int,
                             H: int, S: int):
-    """Sparse-upload whole GOP: one blob, one executor launch."""
-    ops, coefs, sizes = unpack_gop_blob(blob, ring.shape[0], nct, nnzb)
-    return _decode_gop_fused(ring, ops, coefs, sizes, F, H, S)
+    """Sparse-upload whole GOP: one blob, the prologue, one executor
+    launch."""
+    ops, resid = unpack_residuals_sblob(blob, ring.shape[0], nct, nnzb)
+    return _decode_gop_resid(ring, ops, resid, F, H, S)
 
 
 def _shard(a, k: int, per: int, device: torch.device) -> torch.Tensor:

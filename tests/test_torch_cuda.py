@@ -1,8 +1,9 @@
 """Tests of the port that need an NVIDIA GPU: the hand-written CUDA
-executor kernel against its plain PyTorch version, and the decoder on the
-card against the decoder on the CPU.  They skip where no CUDA device is
-present (the kernel has no CPU mode; its per-op code is checked on the CPU
-through the host build in test_torch_executor.py).  This file imports no
+executor and prologue kernels against their plain PyTorch versions, and
+the decoder on the card against the decoder on the CPU.  They skip where no
+CUDA device is present (the kernels have no CPU mode; their per-op and
+per-row code is checked on the CPU through the host builds in
+test_torch_executor.py and test_torch_prologue_kernel.py).  This file imports no
 JAX and nothing of the JAX package, so it runs on a machine without it:
 
     python -m pytest tests/test_torch_cuda.py -q
@@ -18,8 +19,13 @@ from mobiclipdecoder_tpu_torch import state
 from mobiclipdecoder_tpu_torch.models.oracle_video import MobiclipVersion
 from mobiclipdecoder_tpu_torch.models.plan import PlanningDecoder
 from mobiclipdecoder_tpu_torch.testing.synth import StreamSynthesizer
-from mobiclipdecoder_tpu_torch.ops import executor, packing
-from mobiclipdecoder_tpu_torch.ops.residuals import _residuals
+from mobiclipdecoder_tpu_torch.ops import (executor, packing, prologue,
+                                           prologue_kernels)
+from mobiclipdecoder_tpu_torch.ops import residuals as residuals_mod
+from mobiclipdecoder_tpu_torch.ops.prologue import (unpack_gop_blob,
+                                                    unpack_residuals_sblob)
+from mobiclipdecoder_tpu_torch.ops.residuals import _residuals, residuals
+from mobiclipdecoder_tpu_torch.utils.native import NativePlanner
 from mobiclipdecoder_tpu_torch.ops.vmem_engine import VmemBatchDecoder
 
 sys.path.insert(0, str(Path(__file__).parent))
@@ -246,3 +252,103 @@ def test_cuda_sharded_decode_matches_unsharded(cuda, ndev):
         BatchVideoDecoder(W, H, v, batch=4, devices=devices).decode_gop(
             frames),
         BatchVideoDecoder(W, H, v, batch=4, device=cuda).decode_gop(frames))
+
+
+def _prologue_counts():
+    return (prologue_kernels.scatter_launches,
+            prologue_kernels.residual_launches)
+
+
+def _plain_prologue(blob, B, nct, nnzb):
+    ops, coefs, sizes = unpack_gop_blob(blob, B, nct, nnzb)
+    resid = _residuals(coefs.reshape(-1, 64), sizes.reshape(-1))
+    return ops, resid.view(B, nct, 256, 64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("version,size,nb", [
+    (MobiclipVersion.MODS_DS, (64, 48), 3),
+    (MobiclipVersion.MOFLEX_3DS, (272, 32), 2),
+    (MobiclipVersion.MOFLEX_3DS, (528, 32), 2)])
+def test_cuda_prologue_kernels_match_plain(cuda, version, size, nb):
+    """The blob of native-scanned GOPs: K3 + K4 on the card == the plain
+    unpack + _residuals on the card, exact int32; one launch each."""
+    parts = []
+    for b in range(nb):
+        syn = StreamSynthesizer(*size, version, seed=60 + b)
+        pkts = [syn.iframe(0x18) if f == 0 else syn.pframe()
+                for f in range(5)]
+        parts.append(packing._gop_part(
+            NativePlanner(*size, int(version)).scan_gop_packed(pkts)))
+    blob, nct, nnzb = packing._assemble_gop_parts(parts)
+    blob_c = torch.from_numpy(blob).to(cuda)
+    before = _prologue_counts()
+    ops, resid = unpack_residuals_sblob(blob_c, nb, nct, nnzb)
+    torch.cuda.synchronize()
+    assert _prologue_counts() == (before[0] + 1, before[1] + 1)
+    pops, presid = _plain_prologue(blob_c, nb, nct, nnzb)
+    assert ops.device == blob_c.device and resid.device == blob_c.device
+    assert torch.equal(ops, pops) and torch.equal(resid, presid)
+    assert resid.any()
+
+
+@pytest.mark.cuda
+def test_cuda_prologue_kernels_on_extremes_and_pads(cuda):
+    """int16 extremes, random op words and sizes, pad, out-of-range and
+    negative indices: kernels == plain, exact."""
+    rng = np.random.default_rng(9)
+    nb, nct = 3, 2
+    rows = nct * 256
+    ops = rng.integers(0, 1 << 12, (nb, nct, 256, 4)).astype(np.int32)
+    coefs = rng.integers(-32768, 32768, (nb, nct, 256, 64)).astype(np.int32)
+    coefs[rng.random(coefs.shape) < 0.9] = 0
+    coefs[0, 0, 0, :2] = (-32768, 32767)
+    sizes = rng.choice([4, 8], (nb, rows)).astype(np.int32)
+    blob, nnzb = packing._pack_gop_blob_sparse(ops, coefs, sizes)
+    idx = prologue.blob_sections(torch.from_numpy(blob), nb, nct,
+                                 nnzb)[2].numpy()
+    idx[1, -4:] = (-1, rows * 64 + 1, 2 ** 31 - 1, -(2 ** 31))
+    blob_c = torch.from_numpy(blob).to(cuda)
+    got = unpack_residuals_sblob(blob_c, nb, nct, nnzb)
+    want = _plain_prologue(blob_c, nb, nct, nnzb)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_cuda_residual_rows_match_plain(cuda):
+    """The dense form of K4: random rows of both sizes, zero rows, int16
+    extremes and a row count that is not a multiple of the block's."""
+    rng = np.random.default_rng(10)
+    n = 1000
+    flat = rng.integers(-32768, 32768, (n, 64)).astype(np.int32)
+    flat[rng.random((n, 64)) < 0.6] = 0
+    flat[:10] = 0
+    flat[10:20] = rng.choice([-32768, 32767], (10, 64))
+    sz = rng.choice([4, 8], n).astype(np.int32)
+    c, s = torch.from_numpy(flat).to(cuda), torch.from_numpy(sz).to(cuda)
+    before = _prologue_counts()
+    got = residuals(c, s)
+    torch.cuda.synchronize()
+    assert _prologue_counts() == (before[0], before[1] + 1)
+    assert torch.equal(got, _residuals(c, s))
+
+
+@pytest.mark.cuda
+def test_cuda_decode_goes_through_the_prologue_kernels(cuda, monkeypatch):
+    """decode_gop on the card launches K3 and K4 and never runs the plain
+    versions on a CUDA tensor; its frames equal the CPU decoder's."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain prologue version ran on the card")
+    monkeypatch.setattr(prologue, "unpack_gop_blob", refuse)
+    monkeypatch.setattr(prologue, "_residuals", refuse)
+    monkeypatch.setattr(residuals_mod, "_residuals", refuse)
+    v = MobiclipVersion.MOFLEX_3DS
+    frames = _frames(v, (71, 72), 4)
+    before = _prologue_counts()
+    got = VmemBatchDecoder(W, H, v, batch=2, device=cuda).decode_gop(frames)
+    assert _prologue_counts() == (before[0] + 1, before[1] + 1)
+    monkeypatch.undo()
+    want = VmemBatchDecoder(W, H, v, batch=2, device="cpu").decode_gop(
+        frames)
+    np.testing.assert_array_equal(got, want)

@@ -260,6 +260,7 @@ def test_importing_the_port_leaves_jax_unimported():
     assert "mobiclipdecoder_tpu_torch.tools.warm_kernels" in mods
     assert "mobiclipdecoder_tpu_torch.bench" in mods
     assert "mobiclipdecoder_tpu_torch.tools.scaling_bench" in mods
+    assert "mobiclipdecoder_tpu_torch.ops.prologue_kernels" in mods
     jax_dir = str(PORT.parent / "mobiclipdecoder_tpu") + "/"
     code = (
         "import importlib, os, sys; pre = set(sys.modules);"
