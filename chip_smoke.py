@@ -10,16 +10,18 @@ of 24 frames) and the per-frame path, checks both against the sequential
 oracle, and times the kernels and the decoder.  Then it covers the other
 geometries and the user's entry points:
 
-  [prologue]   the prologue kernels (K3 the coefficient scatter, K4 the
-               IDCT pre-pass with the op widening, csrc/prologue.cu) ==
-               the plain chain (unpack_gop_blob + _residuals) on the card,
-               exact int32, on the blobs of DS 256x192 B=8 F=24, 400x240
-               B=4 F=12 and 640x480 B=2 F=8 (the bench's sizes; the two
-               wide GOPs are synthesized in spawned processes from the
-               start of the run) and in K4's dense form on their dense
-               arrays, and on a blob of int16 extremes with pad,
-               out-of-range and negative indices; each kernel's ms
-               (median of 20, in turns with the plain chain), its bound
+  [prologue]   the prologue kernels (csrc/prologue.cu: K5 the whole
+               sparse-blob prologue, blob -> ops and resid in one launch;
+               K4 the IDCT pre-pass of dense rows) == the plain chain
+               (unpack_gop_blob + _residuals) on the card, exact int32, on
+               the blobs of DS 256x192 B=8 F=24, 400x240 B=4 F=12 and
+               640x480 B=2 F=8 (the bench's sizes; the two wide GOPs are
+               synthesized in spawned processes from the start of the run)
+               and in K4 on their dense arrays, and on a blob of int16
+               extremes with pad, out-of-range and negative indices; each
+               kernel's ms (median of 20, in turns with the plain chain
+               and with Tensor.scatter_ of the blob's values, the one
+               PyTorch call for the scatter part of K5's work), its bound
                and the plain chain's ms;
   [geometry]   3DS 400x240 (stride 512) and Wii 640x480 (stride 1024, the
                Moflex profile): kernel == plain executor, the format-
@@ -106,8 +108,8 @@ JAX package: the codec's host modules are the port's own copies.
 
 Besides the checks it measures, on the same card in the same run: the
 executor's time at B = 8, 32, 128 and 256 streams, the time of each stage
-of one GOP's dispatch (the prologue kernels in the decode's order, the
-plain chain's two stages beside them), the device activities per GOP
+of one GOP's dispatch (the prologue kernel K5, the plain chain's two
+stages beside it), the device activities and the kernels by name per GOP
 under the profiler, the plain executor on the card against the kernel
 at the Moflex shape, the sustained frames/s of decode_gops over three
 windows of SUSTAIN_GOPS GOPs, the executor at each geometry, and the
@@ -182,7 +184,7 @@ def zero_counts() -> None:
     executor.frame_launches = 0
     executor.smem_plane_launches = 0
     executor.global_plane_launches = 0
-    prologue_kernels.scatter_launches = 0
+    prologue_kernels.prologue_launches = 0
     prologue_kernels.residual_launches = 0
 
 
@@ -193,10 +195,10 @@ def read_counts() -> tuple[int, int]:
 
 
 def read_prologue_counts() -> tuple[int, int]:
-    """(K3 scatter launches, K4 row-transform launches) since
-    zero_counts."""
+    """(K5 sparse-blob prologue launches, K4 dense row-transform
+    launches) since zero_counts."""
     from mobiclipdecoder_tpu_torch.ops import prologue_kernels
-    return (prologue_kernels.scatter_launches,
+    return (prologue_kernels.prologue_launches,
             prologue_kernels.residual_launches)
 
 
@@ -533,10 +535,9 @@ def prologue_work(blob, nb: int, nct: int, nnzb: int) -> dict:
     """What each prologue kernel must do for this blob: bytes (each input
     read once, each output written once) and operations, and bound_ms,
     the larger of bytes over the memory rate and operations over the
-    32-bit rate.  K3 reads every index and value and writes the nonzeros
-    in range; K4's sparse-blob form reads the op rows, the size bits and
-    the scattered rows and writes ops and resid; its dense form reads
-    coefs and sizes and writes resid."""
+    32-bit rate.  K5 reads the op rows, the size bits and every index
+    and value slot, and writes ops and resid; K4 reads coefs and sizes
+    and writes resid."""
     from mobiclipdecoder_tpu_torch.ops.packing import CHUNK
     from mobiclipdecoder_tpu_torch.ops.prologue import blob_sections
     ops3, sbits, idx, _v = (t.cpu().numpy() for t in blob_sections(
@@ -555,9 +556,10 @@ def prologue_work(blob, nb: int, nct: int, nnzb: int) -> dict:
                 "bound_by": "bytes" if tb >= to else "operations"}
     return {
         "rows": nrows, "nnz": nnz, "nnzb": nnzb, "size4_rows": n4,
-        "scatter": bound(nb * nnzb * 6 + nnz * 4, nb * nnzb * OPS_PER_NONZERO),
-        "rows_sblob": bound(nrows * (12 + 256 + 16 + 256) + sbits.size * 4,
-                            row_ops + nrows * OPS_PER_OP_ROW),
+        "sblob": bound(nrows * (12 + 16 + 256) + sbits.size * 4
+                       + nb * nnzb * 6,
+                       row_ops + nrows * OPS_PER_OP_ROW
+                       + nb * nnzb * OPS_PER_NONZERO),
         "rows_dense": bound(nrows * (256 + 4 + 256), row_ops)}
 
 
@@ -630,11 +632,14 @@ def timed_turns(fns: dict, reps: int = 20, warm: int = 2) -> dict:
 
 def prologue_case(label: str, blob: np.ndarray, nb: int, nct: int,
                   nnzb: int, dense=None) -> dict:
-    """One blob through the prologue kernels on the card (K3 + K4 in the
-    sparse-blob form) and through the plain chain on the card: ops and
-    resid must be equal, exact int32; with the GOP's dense arrays, K4's
-    dense form == _residuals too.  Then each kernel and the plain chain,
-    timed in turns."""
+    """One blob through the prologue on the card (the wrapper
+    unpack_residuals_sblob, one launch of K5) and through the plain chain
+    on the card: ops and resid must be equal, exact int32; with the GOP's
+    dense arrays, K4 == _residuals too.  Then K5, K4, the wrapper, the
+    plain chain and Tensor.scatter_ (the blob's values into a zeroed
+    (B, rows * 64 + 1) buffer, the pad clamp done beforehand and untimed;
+    the one PyTorch call for the scatter part of K5's work), timed in
+    turns."""
     from mobiclipdecoder_tpu_torch.ops import prologue_kernels as pk
     from mobiclipdecoder_tpu_torch.ops.prologue import (
         blob_sections, unpack_gop_blob, unpack_residuals_sblob)
@@ -658,36 +663,42 @@ def prologue_case(label: str, blob: np.ndarray, nb: int, nct: int,
     if dense is None:
         return res
     ops3, sbits, idx, v32 = blob_sections(blob_d, nb, nct, nnzb)
-    scattered = torch.zeros_like(resid_k)
-    work = torch.empty_like(resid_k)
-    ops_o = torch.empty_like(ops_k)
+    ops_o, resid_o = torch.empty_like(ops_k), torch.empty_like(resid_k)
     rd_o = torch.empty_like(rd_k)
     flat_c, flat_s = coefs_d.view(-1, 64), sizes_d.view(-1)
-    pk.scatter_coefs(idx, v32, scattered.view(nb, -1))
-    work.copy_(scattered)
+    rows64 = nct * 256 * 64
+    sidx = idx.long()
+    sidx = torch.where((sidx < 0) | (sidx > rows64), rows64, sidx)
+    sval = torch.stack([((v32 & 0xFFFF) ^ 0x8000) - 0x8000, v32 >> 16],
+                       dim=2).view(nb, nnzb)
+    sdense = torch.zeros((nb, rows64 + 1), dtype=torch.int32,
+                         device=blob_d.device)
     res["ms"] = timed_turns({
-        "scatter": lambda: pk.scatter_coefs(idx, v32, scattered.view(nb, -1)),
-        # the transform is data-independent but for the size bits: in
-        # place again and again on a copy of the scattered rows
-        "rows_sblob": lambda: pk.residual_rows_sblob(
-            work.view(-1, 64), ops3, sbits, ops_o.view(-1, 4)),
+        "sblob": lambda: pk.prologue_sblob(ops3, sbits, idx, v32,
+                                           ops_o.view(-1, 4),
+                                           resid_o.view(-1, 64)),
         "rows_dense": lambda: pk.residual_rows(flat_c, flat_s,
                                                rd_o.view(-1, 64)),
         "kernel_chain": lambda: unpack_residuals_sblob(blob_d, nb, nct,
                                                        nnzb),
+        "scatter_": lambda: sdense.scatter_(1, sidx, sval),
         "plain_unpack": lambda: unpack_gop_blob(blob_d, nb, nct, nnzb),
         "plain_residuals": lambda: _residuals(flat_c, flat_s),
         "plain_chain": lambda: plain_prologue(blob_d, nb, nct, nnzb)})
+    if not (torch.equal(sdense[:, :rows64], coefs_d.view(nb, -1))
+            and torch.equal(resid_o, resid_k)):
+        raise AssertionError(f"[prologue] {label}: the timed calls' "
+                             f"results differ")
     res["work"] = prologue_work(blob, nb, nct, nnzb)
     return res
 
 
 def prologue_phase(ds, main_gop, wide_futs, smi) -> dict:
-    """[prologue]: the prologue kernels == the plain chain on the card,
-    exact int32, on the blobs of the three geometries at the bench's sizes
-    (and in K4's dense form on their dense arrays), and on a blob of int16
-    extremes with pad, out-of-range and negative indices; each kernel's
-    time, bound and the plain chain's time."""
+    """[prologue]: K5 == the plain chain on the card, exact int32, on the
+    blobs of the three geometries at the bench's sizes (and K4 on their
+    dense arrays), and on a blob of int16 extremes with pad, out-of-range
+    and negative indices; each kernel's time and bound, the plain chain's
+    time and Tensor.scatter_'s."""
     from mobiclipdecoder_tpu_torch.models.oracle_video import MobiclipVersion
     from mobiclipdecoder_tpu_torch.ops.packing import (_assemble_gop_parts,
                                                        _part_dense_arrays)
@@ -707,52 +718,47 @@ def prologue_phase(ds, main_gop, wide_futs, smi) -> dict:
             ms, wk = r["ms"], r["work"]
             log(f"[prologue] {label} B={r['B']} F={r['F']} nct={nct} "
                 f"({wk['rows']} rows, {wk['nnz']} nonzeros of nnzb "
-                f"{nnzb} per stream): K3 + K4 == unpack_gop_blob + "
-                f"_residuals on the card, and K4 dense == _residuals, exact "
-                f"int32 (max abs err 0); median of 20 in turns, CUDA events: "
-                f"K3 scatter {ms['scatter']:.4f} ms (bound "
-                f"{wk['scatter']['bound_ms'] * 1e3:.2f} us, "
-                f"{wk['scatter']['bound_by']}), K4 sblob "
-                f"{ms['rows_sblob']:.4f} ms (bound "
-                f"{wk['rows_sblob']['bound_ms'] * 1e3:.2f} us, "
-                f"{wk['rows_sblob']['bound_by']}), K4 dense "
+                f"{nnzb} per stream): K5 == unpack_gop_blob + _residuals "
+                f"on the card, and K4 == _residuals, exact int32 (max abs "
+                f"err 0); median of 20 in turns, CUDA events: K5 "
+                f"{ms['sblob']:.4f} ms (bound "
+                f"{wk['sblob']['bound_ms'] * 1e3:.2f} us, "
+                f"{wk['sblob']['bound_by']}, "
+                f"{wk['sblob']['bound_ms'] / ms['sblob']:.3f} of it), K4 "
                 f"{ms['rows_dense']:.4f} ms (bound "
                 f"{wk['rows_dense']['bound_ms'] * 1e3:.2f} us); the wrapper "
-                f"(zero fill + K3 + K4) {ms['kernel_chain']:.4f} ms vs the "
-                f"plain chain {ms['plain_chain']:.4f} ms (unpack "
+                f"(K5) {ms['kernel_chain']:.4f} ms vs the plain chain "
+                f"{ms['plain_chain']:.4f} ms (unpack "
                 f"{ms['plain_unpack']:.4f} + _residuals "
-                f"{ms['plain_residuals']:.4f}) | {smi}")
+                f"{ms['plain_residuals']:.4f}); Tensor.scatter_ of the "
+                f"values {ms['scatter_']:.4f} ms | {smi}")
         blob, nb, nct, nnzb = extreme_blob(17)
         out["extremes"] = prologue_case("extremes", blob, nb, nct, nnzb)
         log(f"[prologue] int16 extremes, pad, out-of-range and negative "
-            f"indices (B={nb}, nct={nct}): K3 + K4 == the plain chain, "
+            f"indices (B={nb}, nct={nct}): K5 == the plain chain, "
             f"exact int32 | {smi}")
     return out
 
 
 STAGE_NAMES = ("host scan", "assemble blob", "upload blob",
-               "scatter (zero fill + K3)", "rows + op widening (K4)",
-               "executor", "download", "plain unpack blob",
+               "prologue (K5)", "executor", "download", "plain unpack blob",
                "plain residuals")
-DEVICE_STAGES = ("scatter (zero fill + K3)", "rows + op widening (K4)",
-                 "executor", "download")
+DEVICE_STAGES = ("prologue (K5)", "executor", "download")
 
 
 def stage_breakdown(version, gop, reps=10) -> dict:
     """Median ms of each stage of one fused GOP dispatch (B streams, F
     frames), run stage by stage with a sync between stages: host stages
     on the host clock, device stages with CUDA events.  The prologue runs
-    as the decode runs it (the zero fill and K3, then K4 in place); the
+    as the decode runs it (unpack_residuals_sblob: one launch of K5); the
     plain chain's two stages (unpack_gop_blob, _residuals) run after it
     on the same blob, in each repetition, and are not part of the
     dispatch."""
-    from mobiclipdecoder_tpu_torch.ops import executor, prologue_kernels
-    from mobiclipdecoder_tpu_torch.ops.packing import (CHUNK,
-                                                       _assemble_gop_parts,
+    from mobiclipdecoder_tpu_torch.ops import executor
+    from mobiclipdecoder_tpu_torch.ops.packing import (_assemble_gop_parts,
                                                        _gop_part)
-    from mobiclipdecoder_tpu_torch.ops.prologue import (blob_sections,
-                                                        crop_frames,
-                                                        unpack_gop_blob)
+    from mobiclipdecoder_tpu_torch.ops.prologue import (
+        crop_frames, unpack_gop_blob, unpack_residuals_sblob)
     from mobiclipdecoder_tpu_torch.ops.residuals import _residuals
     from mobiclipdecoder_tpu_torch.ops.vmem_engine import VmemBatchDecoder
     dec = VmemBatchDecoder(W, H, version, batch=B, native=True,
@@ -776,33 +782,25 @@ def stage_breakdown(version, gop, reps=10) -> dict:
         blob_d = dec._upload(blob)
         torch.cuda.synchronize()
         t3 = time.perf_counter()
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(8)]
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
         ev[0].record()
-        ops3, sbits, idx, v32 = blob_sections(blob_d, B, nct, nnzb)
-        resid = torch.zeros((B, nct, CHUNK, 64), dtype=torch.int32,
-                            device=blob_d.device)
-        ops = torch.empty((B, nct, CHUNK, 4), dtype=torch.int32,
-                          device=blob_d.device)
-        prologue_kernels.scatter_coefs(idx, v32, resid.view(B, -1))
+        ops, resid = unpack_residuals_sblob(blob_d, B, nct, nnzb)
         ev[1].record()
-        prologue_kernels.residual_rows_sblob(resid.view(-1, 64), ops3, sbits,
-                                             ops.view(-1, 4))
-        ev[2].record()
         frames = executor.run_gop(ops, resid, dec.ring, F, H, 256)
-        ev[3].record()
+        ev[2].record()
         host.copy_(crop_frames(frames, H, 256), non_blocking=True)
-        ev[4].record()
+        ev[3].record()
         torch.cuda.synchronize()
-        ev[5].record()
+        ev[4].record()
         _o, coefs, sizes = unpack_gop_blob(blob_d, B, nct, nnzb)
-        ev[6].record()
+        ev[5].record()
         _residuals(coefs.reshape(-1, 64), sizes.reshape(-1))
-        ev[7].record()
+        ev[6].record()
         torch.cuda.synchronize()
         for k, v in zip(names, [(t1 - t0) * 1e3, (t2 - t1) * 1e3,
                                 (t3 - t2) * 1e3]
-                        + [ev[i].elapsed_time(ev[i + 1]) for i in range(4)]
-                        + [ev[i].elapsed_time(ev[i + 1]) for i in (5, 6)]):
+                        + [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
+                        + [ev[i].elapsed_time(ev[i + 1]) for i in (4, 5)]):
             times[k].append(v)
     return {k: float(np.median(v)) for k, v in times.items()}
 
@@ -1693,6 +1691,28 @@ def device_intervals(events) -> dict[str, list]:
     return out
 
 
+def short_name(name: str) -> str:
+    """A kernel's name without its argument list, at most 100 chars."""
+    name = name.split("(")[0] if not name.startswith("void at::") else name
+    name = name.removeprefix("void ")
+    return name if len(name) <= 100 else name[:97] + "..."
+
+
+def kernel_names(events, w0: float, w1: float) -> dict[str, int]:
+    """How many times each device kernel started in [w0, w1), by name
+    (memcpy and memset excluded, as are annotations)."""
+    out: dict[str, int] = {}
+    for e in events:
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                or getattr(e, "is_user_annotation", False)
+                or e.name in SPAN_NAMES or e.name == TRACE_WINDOW
+                or e.name.lower().startswith(("memcpy", "memset"))
+                or not w0 <= e.time_range.start < w1):
+            continue
+        out[e.name] = out.get(e.name, 0) + 1
+    return out
+
+
 def trace_phase(ds, gops, k1_outs, smi) -> dict:
     """[trace]: torch.profiler with CPU and CUDA activity over decode_gops
     of TRACE_GOPS of the main path's GOPs (after a warm-up), then one
@@ -1701,7 +1721,9 @@ def trace_phase(ds, gops, k1_outs, smi) -> dict:
     span's host ms per GOP, and the device's busy share of the
     decode_gops window: the union of its kernel, memcpy and memset
     intervals over the window's wall, under the profiler.  The same
-    window run untraced first gives the profiler's cost."""
+    window run untraced first gives the profiler's cost.  Each kernel of
+    the window by name, with its count per GOP: exactly one prologue
+    kernel (K5) per GOP, and no fill (resid is not zeroed)."""
     from torch.profiler import ProfilerActivity, profile, record_function
     from mobiclipdecoder_tpu_torch.ops.vmem_engine import VmemBatchDecoder
     with phase("trace"):
@@ -1768,10 +1790,23 @@ def trace_phase(ds, gops, k1_outs, smi) -> dict:
             + ", ".join(f"{k} {v:.2f}" for k, v in per_gop.items())
             + f"; wall per GOP {wall_ms / TRACE_GOPS:.3f} ms "
             f"traced vs {untraced_ms / TRACE_GOPS:.3f} untraced | {smi}")
+        names = kernel_names(events, w0, w1)
+        log("[trace] kernels per GOP in the window: "
+            + "; ".join(f"{short_name(k)}: {v / TRACE_GOPS:.2f}"
+                        for k, v in sorted(names.items(),
+                                           key=lambda kv: -kv[1])))
+        k5 = sum(v for k, v in names.items() if "mobi_prologue_sblob" in k)
+        stray = [k for k in names if "fill" in k.lower()
+                 or "mobi_residual_rows" in k]
+        if k5 != TRACE_GOPS or stray:
+            raise AssertionError(f"[trace] {k5} K5 launches for "
+                                 f"{TRACE_GOPS} GOPs; fills or K4: {stray}")
     return {"spans": spans, "busy_ms": busy_us / 1e3, "wall_ms": wall_ms,
             "busy_share": share, "untraced_wall_ms": untraced_ms,
             "device_activities": {k: len(v) for k, v in kinds.items()},
-            "per_gop": per_gop}
+            "per_gop": per_gop,
+            "kernels_per_gop": {short_name(k): v / TRACE_GOPS
+                                for k, v in names.items()}}
 
 
 def bench_phase(gops, k1_outs, main_oracle, smi) -> dict:
@@ -1799,7 +1834,7 @@ def bench_phase(gops, k1_outs, main_oracle, smi) -> dict:
         log(f"[bench] bench.run(device='cuda'): its e2e GOP == the main "
             f"path's K1 frames and the oracle on streams "
             f"{sorted(main_oracle)}; launches whole-GOP {launches[0]}, "
-            f"single-frame {launches[1]}; prologue K3 {pro[0]}, K4 {pro[1]} "
+            f"single-frame {launches[1]}; prologue K5 {pro[0]}, K4 {pro[1]} "
             f"| {smi}")
         log("[bench] " + json.dumps(report))
     return {"report": report, "launches": launches, "prologue": pro}
@@ -1941,9 +1976,10 @@ def main(argv=None) -> int:
         wall = time.perf_counter() - t0
         launches, _f1 = read_counts()
         main_pro = read_prologue_counts()
-        if launches < 1 or min(main_pro) < 1:
+        # the blob path: exactly one prologue launch (K5) per GOP
+        if launches < 1 or main_pro != (NGOPS, 0):
             raise AssertionError(f"main path launches: executor {launches}, "
-                                 f"prologue {main_pro}")
+                                 f"prologue (K5, K4) {main_pro}")
         main_planes = check_plane_form("main path", H, 256)
         for g, out in enumerate(outs):
             if out.shape != (F, B, H + H // 2, 256) or out.dtype != np.uint8:
@@ -1963,7 +1999,7 @@ def main(argv=None) -> int:
             f"{len(outs)} x {outs[0].shape} uint8; streams 0-1 equal the "
             f"oracle on {NGOPS * F} frames each (oracle "
             f"{time.perf_counter() - t0:.1f} s); executor launches "
-            f"{launches}, prologue K3 {main_pro[0]}, K4 {main_pro[1]}; wall "
+            f"{launches}, prologue K5 {main_pro[0]}, K4 {main_pro[1]}; wall "
             f"{wall:.2f} s incl. warm-up")
 
     # 5. per-frame path: 8 frames as one chunk, then 2 single-frame
@@ -1982,8 +2018,11 @@ def main(argv=None) -> int:
                 len(p) for p in pkts[:8]]:
             raise AssertionError(f"decode_stream_chunk: err {err_i}, "
                                  f"{yuv.shape}, offsets {offs}")
-        if pf_launches[0] < 1 or pf_launches[1] != 2:
-            raise AssertionError(f"per-frame path launches {pf_launches}")
+        # one prologue launch (K5) per GOP and per F=1 round
+        if (pf_launches[0] < 1 or pf_launches[1] != 2
+                or pf_pro != (sum(pf_launches), 0)):
+            raise AssertionError(f"per-frame path launches {pf_launches}, "
+                                 f"prologue (K5, K4) {pf_pro}")
         got = np.concatenate([yuv, np.stack(rest)])
         exp = oracle_frames(ds, pkts)
         if not (got == exp).all():
@@ -1992,7 +2031,7 @@ def main(argv=None) -> int:
                                  f"differ")
         log(f"[per_frame] decode_stream_chunk(8) + decode_frame x2 equal the "
             f"oracle on 10 frames; launches: whole-GOP {pf_launches[0]}, "
-            f"single-frame {pf_launches[1]}, prologue K3 {pf_pro[0]}, K4 "
+            f"single-frame {pf_launches[1]}, prologue K5 {pf_pro[0]}, K4 "
             f"{pf_pro[1]}")
 
     # 6. timing
@@ -2025,7 +2064,7 @@ def main(argv=None) -> int:
         dev_ms = sum(stages[k] for k in DEVICE_STAGES)
         log("[stages] one GOP B=8 F=24, stage by stage, median of 10: "
             + ", ".join(f"{k} {v:.3f} ms" for k, v in stages.items())
-            + f"; device stages (the prologue kernels, executor, download) "
+            + f"; device stages (the prologue kernel, executor, download) "
             f"{dev_ms:.3f} ms | {smi}")
         rates = sustained(ds, gops)
         med = float(np.median(rates))
@@ -2278,19 +2317,22 @@ def main(argv=None) -> int:
                             "plain_ms": v["plain_ms"],
                             "fixed_ms_per_frame": v["fixed_ms_per_frame"],
                             **facts(v["facts"])} for k, v in k2.items()}})
-    # the prologue kernels: launches on every path that reaches them (K3
-    # only where a sparse blob is uploaded; the sharded paths, the entry
-    # dry run and the scaling mesh upload dense arrays), times and bounds
-    # from [prologue] at the main path's geometry, every geometry beside
-    pro_paths = {"main_path": main_pro, "per_frame": pf_pro,
-                 **{f"transcode_{c}": r["prologue"] for c, r in trans.items()},
-                 "batch": batch_pro, "bench": benched["prologue"],
-                 **{f"warm_{g}": r["prologue"] for g, r in warm.items()
-                    if isinstance(r, dict)}}
+    # the prologue kernels: launches on every path that reaches them (K5
+    # where a sparse blob is uploaded; K4 where dense arrays are: the
+    # sharded paths, the entry dry run, the scaling mesh and the bench's
+    # device-resident decodes), times and bounds from [prologue] at the
+    # main path's geometry, every geometry beside
+    blob_paths = {"main_path": main_pro, "per_frame": pf_pro,
+                  **{f"transcode_{c}": r["prologue"]
+                     for c, r in trans.items()},
+                  "batch": batch_pro, "bench": benched["prologue"],
+                  **{f"warm_{g}": r["prologue"] for g, r in warm.items()
+                     if isinstance(r, dict)}}
     dense_paths = {**{f"sharded_{g}": r["prologue"]
                       for g, r in sharded.items() if isinstance(r, dict)},
                    "dryrun_multichip_32x32": entry_res["prologue"],
-                   "scaling": scaling["prologue"]}
+                   "scaling": scaling["prologue"],
+                   "bench": benched["prologue"]}
     pro_src = "mobiclipdecoder_tpu_torch/csrc/prologue.cu"
     pro_err = max(v["max_abs_err"] for v in prologue.values())
     main_pc = prologue[f"{W}x{H}"]
@@ -2308,23 +2350,27 @@ def main(argv=None) -> int:
             "by_geometry": {g: {"B": prologue[g]["B"], "F": prologue[g]["F"],
                                 "ms": prologue[g]["ms"][kind],
                                 "plain_ms": prologue[g]["ms"][plain],
+                                **({"scatter_ms": prologue[g]["ms"][
+                                    "scatter_"]} if kind == "sblob" else {}),
                                 **prologue[g]["work"][kind]}
                             for g in prologue if g != "extremes"}}
+    # no single PyTorch call computes K5's whole function (library_ms
+    # null); Tensor.scatter_ computes its scatter part, timed beside it
     kernels.append(pro_entry(
-        "prologue_scatter", "scatter",
-        "mobiclipdecoder_tpu/ops/vmem_engine.py:1607 (XLA)",
-        {k: v[0] for k, v in pro_paths.items()}, "plain_unpack",
-        "unpack_gop_blob (the whole unpack: op widening, scatter, size "
-        "bits)", {"nnz": main_pc["work"]["nnz"]}))
+        "prologue_sblob", "sblob",
+        "mobiclipdecoder_tpu/ops/vmem_engine.py:1607 (XLA) and :215 (XLA)",
+        {k: v[0] for k, v in blob_paths.items()}, "plain_chain",
+        "unpack_gop_blob + _residuals",
+        {"nnz": main_pc["work"]["nnz"],
+         "scatter_ms": main_pc["ms"]["scatter_"],
+         "scatter_call": "Tensor.scatter_ of the values into a zeroed "
+                         "(B, rows * 64 + 1) buffer",
+         "wrapper_ms": main_pc["ms"]["kernel_chain"]}))
     kernels.append(pro_entry(
-        "prologue_rows", "rows_sblob",
+        "prologue_rows", "rows_dense",
         "mobiclipdecoder_tpu/ops/vmem_engine.py:215 (XLA)",
-        {k: v[1] for k, v in {**pro_paths, **dense_paths}.items()},
-        "plain_residuals", "_residuals",
-        {"dense_form": {"ms": main_pc["ms"]["rows_dense"],
-                        **main_pc["work"]["rows_dense"]},
-         "wrapper_ms": main_pc["ms"]["kernel_chain"],
-         "plain_chain_ms": main_pc["ms"]["plain_chain"]}))
+        {k: v[1] for k, v in dense_paths.items()}, "plain_residuals",
+        "_residuals", {}))
     for kern in kernels:
         if min(kern["launches_by_path"].values()) < 1:
             raise AssertionError(f"{kern['name']} {kern.get('geometry')}: "

@@ -30,12 +30,12 @@ Layers, from the entry point down:
                        decode_round_sharded over a device list
   ops/packing.py       numpy packing of scanned op streams into one blob
   ops/prologue.py      blob -> (ops, resid) on the device: the prologue
-                       kernels' wrapper (ops/prologue_kernels.py,
-                       csrc/prologue.cu: coefficient scatter, then the IDCT
-                       pre-pass with the op widening) or, on the CPU, the
-                       plain versions
-  ops/residuals.py     IDCT pre-pass of dense rows: the same kernel's
-                       wrapper, and its plain version _residuals
+                       kernel's wrapper (ops/prologue_kernels.py,
+                       csrc/prologue.cu K5: each block gathers its
+                       nonzeros, runs the IDCT pre-pass and widens the op
+                       rows) or, on the CPU, the plain versions
+  ops/residuals.py     IDCT pre-pass of dense rows: K4's wrapper, and its
+                       plain version _residuals
   ops/executor.py      the executor kernel's wrapper (csrc/gop_executor.cu);
                        ops/executor_ref.py is its plain PyTorch version
   state.py             reference-ring layout and the kernel's intra tables

@@ -6,10 +6,10 @@ Ports of ``_unpack_ops3`` and the unpack part of ``_decode_gop_fused_sblob``
 ``mobiclipdecoder_tpu/ops/vmem_engine.py``.
 
 ``unpack_residuals_sblob`` is the prologue the decode runs: blob -> (ops,
-resid), the executor's inputs.  On a CUDA blob it launches the two
-prologue kernels (``ops/prologue_kernels.py``: the coefficient scatter,
-then the row transform with the op widening); on a CPU blob it runs the
-plain versions, ``unpack_gop_blob`` and ``ops/residuals.py``
+resid), the executor's inputs.  On a CUDA blob it launches one kernel
+(``ops/prologue_kernels.py`` ``prologue_sblob``, K5: the gather of each
+block's nonzeros, the row transform and the op widening); on a CPU blob it
+runs the plain versions, ``unpack_gop_blob`` and ``ops/residuals.py``
 ``_residuals``.  The other functions here are plain torch and run on the
 device their input lies on.
 """
@@ -84,9 +84,9 @@ def unpack_residuals_sblob(blob: torch.Tensor, B: int, nct: int,
                            nnzb: int) -> tuple:
     """Sparse upload blob -> (ops (B, nct, CHUNK, 4), resid (B, nct, CHUNK,
     64)) int32 on the blob's device: ``unpack_gop_blob`` followed by
-    ``_residuals``.  A CUDA blob takes the kernels (K3 scatters the
-    nonzeros into a zeroed resid, K4 transforms its rows in place and
-    widens the op rows), or raises; a CPU blob takes the plain versions."""
+    ``_residuals``.  A CUDA blob takes one launch of K5 (every row of
+    ops and resid written once, so both are allocated unfilled), or
+    raises; a CPU blob takes the plain versions."""
     ops3, sbits, idx, v32 = blob_sections(blob, B, nct, nnzb)
     if blob.device.type == "cpu":
         ops, coefs, sizes = unpack_gop_blob(blob, B, nct, nnzb)
@@ -94,13 +94,12 @@ def unpack_residuals_sblob(blob: torch.Tensor, B: int, nct: int,
         return ops, resid.view(B, nct, CHUNK, 64)
     if blob.device.type != "cuda":
         raise ValueError(f"no prologue for device {blob.device}")
-    resid = torch.zeros((B, nct, CHUNK, 64), dtype=torch.int32,
+    resid = torch.empty((B, nct, CHUNK, 64), dtype=torch.int32,
                         device=blob.device)
     ops = torch.empty((B, nct, CHUNK, 4), dtype=torch.int32,
                       device=blob.device)
-    prologue_kernels.scatter_coefs(idx, v32, resid.view(B, -1))
-    prologue_kernels.residual_rows_sblob(resid.view(-1, 64), ops3, sbits,
-                                         ops.view(-1, 4))
+    prologue_kernels.prologue_sblob(ops3, sbits, idx, v32, ops.view(-1, 4),
+                                    resid.view(-1, 64))
     return ops, resid
 
 

@@ -2,26 +2,28 @@
 
 The JAX package runs its whole-GOP prologue as XLA code outside its Pallas
 kernel (``_decode_gop_fused_sblob`` and ``_residuals`` in
-``mobiclipdecoder_tpu/ops/vmem_engine.py``); the port runs it as two
+``mobiclipdecoder_tpu/ops/vmem_engine.py``); the port runs it as
 hand-written CUDA kernels, built with nvcc at first use:
 
-* K3 ``scatter_coefs``: the sparse blob's int16 nonzeros into a dense
-  int32 buffer zeroed beforehand, one thread per nonzero, order-free;
-* K4 ``residual_rows`` / ``residual_rows_sblob``: the IDCT pre-pass, one
-  thread per row; its sparse-blob form runs in place on the scattered
-  buffer, reads the sizes from the blob's size bits and widens the packed
-  op rows.
+* K5 ``prologue_sblob``: the whole sparse-blob prologue in one launch,
+  blob sections -> (ops, resid): each block of 128 rows gathers its
+  nonzeros from the stream's sorted index list into a zeroed tile in
+  shared memory, transforms the rows there (the IDCT pre-pass, sizes from
+  the blob's size bits), widens the packed op rows and writes every row
+  once;
+* K4 ``residual_rows``: the IDCT pre-pass of dense coefficient rows, one
+  thread per row.
 
 Each launch function takes CUDA tensors only, launches its kernel on the
 current stream of the tensors' device, and raises if the launch is refused.
-``scatter_launches`` and ``residual_launches`` count the launches of K3 and
-K4 (both forms).  The wrappers that pick the plain version for CPU tensors
-are ``ops/prologue.py`` ``unpack_residuals_sblob`` and ``ops/residuals.py``
+``prologue_launches`` and ``residual_launches`` count the launches of K5
+and K4.  The wrappers that pick the plain version for CPU tensors are
+``ops/prologue.py`` ``unpack_residuals_sblob`` and ``ops/residuals.py``
 ``residuals``.
 
-``prologue_sblob_host`` and ``residual_rows_host`` run the kernels'
-per-row code (csrc/prologue_ops.cuh) built for the host with g++; they
-exist for the CPU tests only.
+``prologue_sblob_host`` and ``residual_rows_host`` run the kernels' code
+(csrc/prologue_ops.cuh: K5's per-block function, K4's per-row one) built
+for the host with g++; they exist for the CPU tests only.
 """
 from __future__ import annotations
 
@@ -32,7 +34,7 @@ import torch
 
 from ..utils import build
 
-scatter_launches = 0
+prologue_launches = 0
 residual_launches = 0
 
 _lib = None
@@ -47,14 +49,11 @@ def _load():
     global _lib
     if _lib is None:
         lib = build.load("prologue", ["prologue.cu"], "nvcc")
-        lib.mobi_scatter_coefs_launch.restype = _I
-        lib.mobi_scatter_coefs_launch.argtypes = [_P, _P, _P, _L, _L, _L, _I,
-                                                  _P]
+        lib.mobi_prologue_sblob_launch.restype = _I
+        lib.mobi_prologue_sblob_launch.argtypes = [_P, _P, _P, _P, _P, _P, _L,
+                                                   _L, _L, _I, _P]
         lib.mobi_residual_rows_launch.restype = _I
         lib.mobi_residual_rows_launch.argtypes = [_P, _P, _P, _L, _I, _P]
-        lib.mobi_residual_rows_sblob_launch.restype = _I
-        lib.mobi_residual_rows_sblob_launch.argtypes = [_P, _P, _P, _P, _L,
-                                                        _I, _P]
         _lib = lib
     return _lib
 
@@ -64,7 +63,7 @@ def _load_host():
     if _host_lib is None:
         lib = build.load("prologue_host", ["prologue_host.cpp"], "g++",
                          "host")
-        lib.mobi_prologue_sblob_host.restype = None
+        lib.mobi_prologue_sblob_host.restype = _I
         lib.mobi_prologue_sblob_host.argtypes = [_P, _P, _P, _P, _L, _L, _L,
                                                  _P, _P]
         lib.mobi_residual_rows_host.restype = None
@@ -101,22 +100,46 @@ def _launch(fn, dev: torch.device, *args) -> None:
                            f"error {rc}")
 
 
-def scatter_coefs(idx: torch.Tensor, v32: torch.Tensor,
-                  dense: torch.Tensor) -> None:
-    """K3: the nonzeros idx (B, nnzb) with their int16 values in pairs
-    v32 (B, nnzb / 2) into dense (B, rows * 64), which holds zeros where
-    nothing is written; indices outside [0, rows * 64) are dropped."""
-    global scatter_launches
-    dev = _on_one_card(idx=idx, v32=v32, dense=dense)
-    B, nnzb = idx.shape
-    if nnzb % 2 or tuple(v32.shape) != (B, nnzb // 2) or dense.dim() != 2 \
-            or dense.shape[0] != B or dense.shape[1] % 64:
-        raise ValueError(f"idx {tuple(idx.shape)}, v32 {tuple(v32.shape)}, "
-                         f"dense {tuple(dense.shape)}: expected (B, nnzb), "
-                         f"(B, nnzb / 2) with nnzb even, (B, rows * 64)")
-    _launch(_load().mobi_scatter_coefs_launch, dev, idx.data_ptr(),
-            v32.data_ptr(), dense.data_ptr(), B, nnzb, dense.shape[1])
-    scatter_launches += 1
+def _sblob_shapes(ops3, sbits, idx, v32, ops, resid) -> tuple:
+    """(N, B, nnzb) of K5's operands, or ValueError unless ops3 (N, 3),
+    sbits (ceil(N / 32),), idx (B, nnzb), v32 (B, nnzb / 2), ops (N, 4)
+    and resid (N, 64) with nnzb even and N / B rows per stream a multiple
+    of 128 (the layout's nct * 256 always is)."""
+    n = ops3.shape[0] if ops3.ndim else 0
+    B, nnzb = idx.shape if idx.ndim == 2 else (0, 0)
+    if (tuple(ops3.shape) != (n, 3) or n < 1 or B < 1
+            or n % B or (n // B) % 128 or nnzb < 2 or nnzb % 2
+            or tuple(sbits.shape) != ((n + 31) // 32,)
+            or tuple(v32.shape) != (B, nnzb // 2)
+            or tuple(ops.shape) != (n, 4) or tuple(resid.shape) != (n, 64)):
+        raise ValueError(f"ops3 {tuple(ops3.shape)}, sbits "
+                         f"{tuple(sbits.shape)}, idx {tuple(idx.shape)}, "
+                         f"v32 {tuple(v32.shape)}, ops {tuple(ops.shape)}, "
+                         f"resid {tuple(resid.shape)}: expected (N, 3), "
+                         f"(ceil(N / 32),), (B, nnzb), (B, nnzb / 2), "
+                         f"(N, 4), (N, 64) with nnzb even and N / B a "
+                         f"multiple of 128")
+    return n, B, nnzb
+
+
+def prologue_sblob(ops3: torch.Tensor, sbits: torch.Tensor,
+                   idx: torch.Tensor, v32: torch.Tensor, ops: torch.Tensor,
+                   resid: torch.Tensor) -> None:
+    """K5: the sparse blob's sections (``ops/prologue.py``
+    ``blob_sections``) -> ops (N, 4), the widened op rows, and resid (N,
+    64), the IDCT pre-pass of the coefficients scattered per stream
+    (stream b's rows b * N / B onward; indices outside [0, N / B * 64)
+    dropped); row r's size is bit r of sbits.  Every row of ops and resid
+    is written: neither needs a fill.  Each stream's in-range indices
+    must ascend, unique (the JAX package's contract)."""
+    global prologue_launches
+    dev = _on_one_card(ops3=ops3, sbits=sbits, idx=idx, v32=v32, ops=ops,
+                       resid=resid)
+    n, B, nnzb = _sblob_shapes(ops3, sbits, idx, v32, ops, resid)
+    _launch(_load().mobi_prologue_sblob_launch, dev, ops3.data_ptr(),
+            sbits.data_ptr(), idx.data_ptr(), v32.data_ptr(), ops.data_ptr(),
+            resid.data_ptr(), B, nnzb, n)
+    prologue_launches += 1
 
 
 def residual_rows(coefs: torch.Tensor, sizes: torch.Tensor,
@@ -136,44 +159,24 @@ def residual_rows(coefs: torch.Tensor, sizes: torch.Tensor,
     residual_launches += 1
 
 
-def residual_rows_sblob(resid: torch.Tensor, ops3: torch.Tensor,
-                        sbits: torch.Tensor, ops: torch.Tensor) -> None:
-    """K4, sparse-blob form: resid (N, 64) scattered coefficients ->
-    spatial rows in place; row r's size is bit r of the words sbits
-    (ceil(N / 32),); the packed op rows ops3 (N, 3) -> ops (N, 4)."""
-    global residual_launches
-    dev = _on_one_card(resid=resid, ops3=ops3, sbits=sbits, ops=ops)
-    n = resid.shape[0]
-    if (resid.dim() != 2 or resid.shape[1] != 64 or n < 1
-            or tuple(ops3.shape) != (n, 3) or tuple(ops.shape) != (n, 4)
-            or tuple(sbits.shape) != ((n + 31) // 32,)):
-        raise ValueError(f"resid {tuple(resid.shape)}, ops3 "
-                         f"{tuple(ops3.shape)}, sbits {tuple(sbits.shape)}, "
-                         f"ops {tuple(ops.shape)}: expected (N, 64), (N, 3), "
-                         f"(ceil(N / 32),), (N, 4)")
-    _launch(_load().mobi_residual_rows_sblob_launch, dev, resid.data_ptr(),
-            ops3.data_ptr(), sbits.data_ptr(), ops.data_ptr(), n)
-    residual_launches += 1
-
-
 def _np32(a) -> np.ndarray:
     return np.ascontiguousarray(np.asarray(a), np.int32)
 
 
 def prologue_sblob_host(ops3, sbits, idx, v32) -> tuple:
-    """The sparse-blob form on the host (g++ build of the kernels' code):
+    """K5's per-block code on the host (g++ build), block by block:
     ops3 (N, 3), sbits, idx (B, nnzb), v32 (B, nnzb / 2) -> (ops (N, 4),
     resid (N, 64)) int32 numpy."""
     ops3, sbits, idx, v32 = map(_np32, (ops3, sbits, idx, v32))
     n = ops3.shape[0]
-    B, nnzb = idx.shape
-    if nnzb % 2 or v32.shape != (B, nnzb // 2) or n % B:
-        raise ValueError(f"idx {idx.shape}, v32 {v32.shape}, {n} rows")
     ops = np.empty((n, 4), np.int32)
     resid = np.empty((n, 64), np.int32)
-    _load_host().mobi_prologue_sblob_host(
+    _n, B, nnzb = _sblob_shapes(ops3, sbits, idx, v32, ops, resid)
+    rc = _load_host().mobi_prologue_sblob_host(
         ops3.ctypes.data, sbits.ctypes.data, idx.ctypes.data,
         v32.ctypes.data, B, nnzb, n, ops.ctypes.data, resid.ctypes.data)
+    if rc != 0:
+        raise ValueError(f"K5 refuses B={B}, nnzb={nnzb}, {n} rows")
     return ops, resid
 
 

@@ -5,9 +5,9 @@ B independent streams decode in lockstep.  Per GOP the host C++ scanner
 (``utils/native.py`` over the repository's ``native/scanner.cpp``) emits one packed part
 per stream; ``ops/packing.py`` assembles them into one int32 blob, which is
 uploaded once; on the device the prologue (``ops/prologue.py``
-``unpack_residuals_sblob``: two kernels on the card, the coefficient
-scatter and the IDCT pre-pass with the op widening) turns it into the
-executor's inputs, and ONE executor launch (``ops/executor.py``) decodes
+``unpack_residuals_sblob``: one kernel on the card, which gathers each
+block's nonzeros and runs the IDCT pre-pass and the op widening) turns
+it into the executor's inputs, and ONE executor launch (``ops/executor.py``) decodes
 the whole GOP for every stream against the 6-slot reference ring, which
 stays on the device across GOPs.  Dense inputs take the pre-pass kernel
 alone (``ops/residuals.py`` ``residuals``); CPU tensors take the plain

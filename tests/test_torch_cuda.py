@@ -255,7 +255,8 @@ def test_cuda_sharded_decode_matches_unsharded(cuda, ndev):
 
 
 def _prologue_counts():
-    return (prologue_kernels.scatter_launches,
+    """(K5 launches, K4 launches)."""
+    return (prologue_kernels.prologue_launches,
             prologue_kernels.residual_launches)
 
 
@@ -271,8 +272,9 @@ def _plain_prologue(blob, B, nct, nnzb):
     (MobiclipVersion.MOFLEX_3DS, (272, 32), 2),
     (MobiclipVersion.MOFLEX_3DS, (528, 32), 2)])
 def test_cuda_prologue_kernels_match_plain(cuda, version, size, nb):
-    """The blob of native-scanned GOPs: K3 + K4 on the card == the plain
-    unpack + _residuals on the card, exact int32; one launch each."""
+    """The blob of native-scanned GOPs: K5 on the card == the plain
+    unpack + _residuals on the card, exact int32; one launch of K5 and
+    none of K4."""
     parts = []
     for b in range(nb):
         syn = StreamSynthesizer(*size, version, seed=60 + b)
@@ -285,7 +287,7 @@ def test_cuda_prologue_kernels_match_plain(cuda, version, size, nb):
     before = _prologue_counts()
     ops, resid = unpack_residuals_sblob(blob_c, nb, nct, nnzb)
     torch.cuda.synchronize()
-    assert _prologue_counts() == (before[0] + 1, before[1] + 1)
+    assert _prologue_counts() == (before[0] + 1, before[1])
     pops, presid = _plain_prologue(blob_c, nb, nct, nnzb)
     assert ops.device == blob_c.device and resid.device == blob_c.device
     assert torch.equal(ops, pops) and torch.equal(resid, presid)
@@ -295,7 +297,7 @@ def test_cuda_prologue_kernels_match_plain(cuda, version, size, nb):
 @pytest.mark.cuda
 def test_cuda_prologue_kernels_on_extremes_and_pads(cuda):
     """int16 extremes, random op words and sizes, pad, out-of-range and
-    negative indices: kernels == plain, exact."""
+    negative indices: K5 == plain, exact."""
     rng = np.random.default_rng(9)
     nb, nct = 3, 2
     rows = nct * 256
@@ -336,8 +338,9 @@ def test_cuda_residual_rows_match_plain(cuda):
 
 @pytest.mark.cuda
 def test_cuda_decode_goes_through_the_prologue_kernels(cuda, monkeypatch):
-    """decode_gop on the card launches K3 and K4 and never runs the plain
-    versions on a CUDA tensor; its frames equal the CPU decoder's."""
+    """decode_gop on the card launches K5 once (and K4 not) and never runs
+    the plain versions on a CUDA tensor; its frames equal the CPU
+    decoder's."""
     def refuse(*args, **kwargs):
         raise AssertionError("a plain prologue version ran on the card")
     monkeypatch.setattr(prologue, "unpack_gop_blob", refuse)
@@ -347,8 +350,43 @@ def test_cuda_decode_goes_through_the_prologue_kernels(cuda, monkeypatch):
     frames = _frames(v, (71, 72), 4)
     before = _prologue_counts()
     got = VmemBatchDecoder(W, H, v, batch=2, device=cuda).decode_gop(frames)
-    assert _prologue_counts() == (before[0] + 1, before[1] + 1)
+    assert _prologue_counts() == (before[0] + 1, before[1])
     monkeypatch.undo()
     want = VmemBatchDecoder(W, H, v, batch=2, device="cpu").decode_gop(
         frames)
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.cuda
+def test_cuda_blob_path_launches_one_prologue_kernel_and_no_fill(cuda):
+    """The blob path launches exactly one prologue kernel (K5) per GOP and
+    per F=1 round, and no fill of resid: counted by the wrappers, and by
+    the kernel names a torch.profiler trace of one decode_gop shows."""
+    from torch.profiler import ProfilerActivity, profile
+    from mobiclipdecoder_tpu_torch.ops.vmem_engine import VmemVideoDecoder
+    v = MobiclipVersion.MODS_DS
+    pkts = [fr[0] for fr in _frames(v, (81,), 6)]
+    vd = VmemVideoDecoder(W, H, v, native=True, device=cuda)
+    before = (_prologue_counts(), executor.launches, executor.frame_launches)
+    vd.decode_stream_chunk(pkts[:4])
+    for p in pkts[4:]:
+        vd.decode_frame(p)
+    torch.cuda.synchronize()
+    k5, k4 = _prologue_counts()
+    gops = executor.launches - before[1]
+    rounds = executor.frame_launches - before[2]
+    assert rounds == 2 and gops >= 1
+    assert (k5 - before[0][0], k4 - before[0][1]) == (gops + rounds, 0)
+    frames = _frames(v, (82, 83), 4)
+    dec = VmemBatchDecoder(W, H, v, batch=2, device=cuda)
+    dec.decode_gop(frames)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        dec.decode_gop(frames)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert sum("mobi_prologue_sblob" in n for n in names) == 1, names
+    assert not [n for n in names if "fill" in n.lower()
+                or "mobi_residual_rows" in n], names
