@@ -2,13 +2,13 @@
 
     python3 chip_smoke.py [--kernel-only | --multi-device]
 
-Builds the executor kernel and the prologue kernels from
-mobiclipdecoder_tpu_torch/csrc with nvcc (one nvcc per source, started
-together), holds them against their plain PyTorch versions, drives the
-main path (the fused whole-GOP decode of 8 DS MODS 256x192 streams, 2 GOPs
-of 24 frames) and the per-frame path, checks both against the sequential
-oracle, and times the kernels and the decoder.  Then it covers the other
-geometries and the user's entry points:
+Builds the executor kernel, the prologue kernels and the wavefront
+engine's kernel from mobiclipdecoder_tpu_torch/csrc with nvcc (one nvcc
+per source, started together), holds them against their plain PyTorch
+versions, drives the main path (the fused whole-GOP decode of 8 DS MODS
+256x192 streams, 2 GOPs of 24 frames) and the per-frame path, checks both
+against the sequential oracle, and times the kernels and the decoder.
+Then it covers the other geometries and the user's entry points:
 
   [prologue]   the prologue kernels (csrc/prologue.cu: K5 the whole
                sparse-blob prologue, blob -> ops and resid in one launch;
@@ -34,13 +34,18 @@ geometries and the user's entry points:
                .wav bytes equal those of `--engine oracle`;
   [batch]      the corpus worker over 8 MODS files of 2 GOPs each, 8
                streams per launch: every shard equals the oracle worker's;
-  [wavefront]  the wavefront engine (plain torch on the card, the JAX
-               package's tpu-xla): BatchVideoDecoder.decode_gop over the
-               main path's 8 streams x 2 GOPs == the oracle and the
-               executor's frames; WavefrontVideoDecoder at 400x240 and
-               640x480 == oracle; `decode --engine wavefront` of the three
-               [transcode] containers == `--engine oracle` bytes; ms per
-               GOP, frames/s, intra levels and device launches per frame;
+  [wavefront]  the wavefront engine (the JAX package's tpu-xla; on the
+               card K6, csrc/wavefront.cu, one launch per frame round):
+               K6 == its plain version on the card frame round by frame
+               round for GOP 0 of the main path and a 640x480 I-frame,
+               both timed per GOP in turns, with K6's bound;
+               BatchVideoDecoder.decode_gop over the main path's 8 streams
+               x 2 GOPs == the oracle and the executor's frames;
+               WavefrontVideoDecoder at 400x240 and 640x480 == oracle;
+               `decode --engine wavefront` of the three [transcode]
+               containers == `--engine oracle` bytes; K6 launches per path,
+               ms per GOP, frames/s, intra levels and device launches per
+               I-frame and P-frame round (within 4 of each other);
   [encode]     the encoder at all three sizes (quantizer 0x14, gop 4, refs
                2, me_range 6, 3 frames, Moflex profile): its SAD volumes on
                the card == on the CPU, its bytes == the CPU encoder's, its
@@ -83,13 +88,15 @@ the encoder with device="cpu") run in a pool of spawned processes, started
 when [wavefront] starts and shut down after [encode].
 
 Every phase raises on a mismatch.  Before each run of a user path that
-reaches the executor its launch counters and the prologue kernels' are
-set to 0, and they are read after it (the kernels line gives each
+reaches the executor or K6 the launch counters of the executor, the
+prologue kernels and K6 are set to 0, and they are read after it (the
+kernels line gives each
 kernel's launches by path); they also show which form of the executor ran
 (the working plane in shared memory at 256x192 and 400x240, in global
 memory at 640x480).  ``--kernel-only`` stops after the build (whose ptxas
-report it prints), [prologue] and the executor-vs-plain checks at every
-geometry, as a GOP and at F=1, and prints no result line.
+report it prints), [prologue], K6 against its plain version and the
+executor-vs-plain checks at every geometry, as a GOP and at F=1, and
+prints no result line.
 ``--multi-device`` runs the build, the main path's decode and then only
 [sharded], [entry], [multi_gpu] and
 [scaling] over every visible GPU (on a machine with several GPUs: the
@@ -179,7 +186,9 @@ def smi_line() -> str:
 
 
 def zero_counts() -> None:
-    from mobiclipdecoder_tpu_torch.ops import executor, prologue_kernels
+    from mobiclipdecoder_tpu_torch.ops import (executor, prologue_kernels,
+                                               wavefront_kernels)
+    wavefront_kernels.wavefront_launches = 0
     executor.launches = 0
     executor.frame_launches = 0
     executor.smem_plane_launches = 0
@@ -200,6 +209,12 @@ def read_prologue_counts() -> tuple[int, int]:
     from mobiclipdecoder_tpu_torch.ops import prologue_kernels
     return (prologue_kernels.prologue_launches,
             prologue_kernels.residual_launches)
+
+
+def read_wavefront_count() -> int:
+    """K6 launches since zero_counts."""
+    from mobiclipdecoder_tpu_torch.ops import wavefront_kernels
+    return wavefront_kernels.wavefront_launches
 
 
 def read_plane_counts() -> tuple[int, int]:
@@ -1063,11 +1078,13 @@ def cuda_ms(fn, reps=10) -> float:
 def device_launches(fn) -> tuple[int | None, str]:
     """(device activities (kernels, copies, fills) that torch.profiler sees
     while fn() runs, or None, and why not).  fn() runs either way; a
-    profiler that cannot trace leaves the count unmeasured."""
+    profiler that cannot trace leaves the count unmeasured.  The trace
+    takes CPU and CUDA activity, as [trace]'s does."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     try:
-        prof = profile(activities=[ProfilerActivity.CUDA])
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
         prof.__enter__()
     except (RuntimeError, AssertionError) as e:
         fn()
@@ -1077,9 +1094,28 @@ def device_launches(fn) -> tuple[int | None, str]:
         torch.cuda.synchronize()
     finally:
         prof.__exit__(None, None, None)
-    n = sum(1 for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA)
+    n = sum(len(v) for v in device_intervals(prof.events()).values())
     return (n, "") if n else (None, "the profiler saw no device activity")
+
+
+def round_activities_task(rounds) -> tuple:
+    """In a spawned process, where no profiler session ran before: the
+    device activities of a BatchVideoDecoder's first
+    frame round (an I-frame) and of the 3 frame rounds after it, DS
+    256x192, rounds[f][b] the packets; after one warm round on another
+    decoder (builds loaded, K6's tables uploaded).  (I count, why, P count
+    for 3 rounds, why)."""
+    from mobiclipdecoder_tpu_torch.models.oracle_video import MobiclipVersion
+    from mobiclipdecoder_tpu_torch.parallel.batch import BatchVideoDecoder
+    ds = MobiclipVersion.MODS_DS
+    nb = len(rounds[0])
+    BatchVideoDecoder(W, H, ds, batch=nb, native=True,
+                      device="cuda").decode_frames(rounds[0])
+    pd = BatchVideoDecoder(W, H, ds, batch=nb, native=True, device="cuda")
+    l_i, why = device_launches(lambda: pd.decode_frames(rounds[0]))
+    l_p, why_p = device_launches(
+        lambda: [pd.decode_frames(fp) for fp in rounds[1:4]])
+    return l_i, why, l_p, why_p
 
 
 def write_y4m(path: Path, size, n: int) -> None:
@@ -1090,19 +1126,127 @@ def write_y4m(path: Path, size, n: int) -> None:
     wr.close()
 
 
+def wavefront_work(rounds: list[dict], h: int, S: int) -> dict:
+    """What K6 must do for these frame rounds (BatchVideoDecoder.
+    scan_packets() host arrays, one per round).  ``bytes``: each input read
+    once (the MC, residual and intra rows in use, each stream's sequence
+    map and level count, the ring samples its MC leaves need: the block
+    plus a row and a column where the half-pel case reads them) and each
+    output written once (each stream's frame).  ``ops``: the pixels the
+    rows write, one operation each at least.  ``bound_ms`` is the larger of
+    bytes over the memory rate and ops over the 32-bit rate.  ``levels``:
+    each round's serial depth, the deepest stream's intra levels."""
+    nbytes = nops = 0
+    levels = []
+    for r in rounds:
+        mc = r["mc"].astype(np.int64)
+        nb = mc.shape[0]
+        _y, _x, w, hh, _ref, dx, dy = np.moveaxis(mc, -1, 0)
+        live = w > 0
+        cw, ch = w >> 1, hh >> 1
+        chroma = np.where((cw > 0) & (ch > 0),
+                          2 * (ch + ((dy >> 1) & 1)) * (cw + ((dx >> 1) & 1)),
+                          0)
+        samples = np.where(live, (hh + (dy & 1)) * (w + (dx & 1)) + chroma,
+                           0)
+        rsize = r["resid"][..., 3].astype(np.int64)
+        nl = np.minimum(r["n_levels"].reshape(nb), r["iops"].shape[1])
+        isize = r["iops"][..., 3].astype(np.int64)
+        ilive = (isize > 0) & (np.arange(r["iops"].shape[1])[None, :, None]
+                               < nl[:, None, None])
+        nbytes += 4 * (7 * int(live.sum()) + int(samples.sum())
+                       + 68 * int((rsize > 0).sum()) + 75 * int(ilive.sum())
+                       + r["seqmap"].size + nb + nb * (h + h // 2) * S)
+        nops += (int(np.where(live, w * hh + 2 * cw * ch, 0).sum())
+                 + int(np.where(rsize > 0, rsize ** 2, 0).sum())
+                 + int(np.where(ilive, isize ** 2, 0).sum()))
+        levels.append(int(nl.max()))
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nops / OPS_PER_S * 1e3
+    return {"bytes": nbytes, "ops": nops, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "levels": levels}
+
+
+def wavefront_kernel_check(ds, mf, main_gop, wide_gop, smi) -> dict:
+    """K6 == the plain version on the card, exact int32, frame round by
+    frame round with K6's frames carried in the ring, for GOP 0 of the main
+    path (DS B=8 F=24) and a Moflex 640x480 I-frame (B=1, ``wide_gop``
+    [[packet]]); then the GOP through K6 and through the plain version,
+    timed in turns (median of 3 CUDA-event times, each call behind the
+    spin), beside K6's bound."""
+    from mobiclipdecoder_tpu_torch.models.pipeline import (
+        decode_frame_core, decode_frame_core_plain)
+    from mobiclipdecoder_tpu_torch.parallel.batch import (BatchVideoDecoder,
+                                                          upload_rounds)
+    res = {}
+    for version, size, gop in ((ds, (W, H), main_gop),
+                               (mf, WIDE[1], wide_gop)):
+        label = f"{size[0]}x{size[1]}"
+        bd = BatchVideoDecoder(*size, version, batch=len(gop[0]), native=True,
+                               device="cuda")
+        rounds = [bd.scan_packets(fp) for fp in gop]
+        ups = upload_rounds(rounds, bd.device)
+        h, S = size[1], bd.stride
+
+        def run(fn, check=False):
+            ring = torch.zeros_like(bd.rings[0])
+            err = 0
+            for t in ups:
+                ring = torch.roll(ring, 1, dims=1)
+                args = (ring, t["mc"], t["resid"], t["resid_coef"],
+                        t["iops"], t["icoef"], t["seqmap"], t["n_levels"],
+                        h, S)
+                buf = fn(*args)
+                if check:
+                    err = max(err, max_err(buf, decode_frame_core_plain(
+                        *args)))
+                ring[:, 0] = buf
+            return err
+
+        zero_counts()
+        err = run(decode_frame_core, check=True)
+        torch.cuda.synchronize()
+        if err != 0 or read_wavefront_count() != len(ups):
+            raise AssertionError(f"[wavefront] K6 {label}: max abs err "
+                                 f"{err} against the plain version, "
+                                 f"{read_wavefront_count()} launches for "
+                                 f"{len(ups)} frame rounds")
+        ms = timed_turns({"k6": lambda: run(decode_frame_core),
+                          "plain": lambda: run(decode_frame_core_plain)},
+                         reps=3, warm=1)
+        work = wavefront_work(rounds, h, S)
+        res[label] = {"B": len(gop[0]), "F": len(gop), "max_abs_err": err,
+                      "ms": ms["k6"], "plain_ms": ms["plain"], **work}
+        log(f"[wavefront] K6 == the plain version on the card, frame round "
+            f"by frame round, {label} B={len(gop[0])} F={len(gop)} (levels "
+            f"per round {work['levels'][:4]}{'...' if len(gop) > 4 else ''}"
+            f"): K6 {ms['k6']:.3f} ms vs plain {ms['plain']:.1f} ms per "
+            f"GOP (median of 3 in turns, behind the spin); bound "
+            f"{work['bound_ms'] * 1e3:.2f} us ({work['bound_by']}: "
+            f"{work['bytes'] / 1e6:.2f} MB), K6/bound "
+            f"{ms['k6'] / work['bound_ms']:.0f}x | {smi}")
+    return res
+
+
 def wavefront_phase(ds, gops, k1_outs, main_oracle, oracle_futs, wide_pkts,
                     wide_futs, trans, smi) -> dict:
-    """[wavefront]: the main path's streams through BatchVideoDecoder on the
-    card == the oracle and the executor's frames; WavefrontVideoDecoder at
-    the wide sizes == oracle; the CLI's wavefront engine == oracle bytes."""
+    """[wavefront]: K6 == the plain version on the card and both timed
+    (wavefront_kernel_check); the main path's streams through
+    BatchVideoDecoder on the card == the oracle and the executor's frames;
+    WavefrontVideoDecoder at the wide sizes == oracle; the CLI's wavefront
+    engine == oracle bytes.  Each path's K6 launches, counted from 0."""
     from mobiclipdecoder_tpu_torch.models.pipeline import (
         WavefrontVideoDecoder)
     from mobiclipdecoder_tpu_torch.parallel.batch import BatchVideoDecoder
     from mobiclipdecoder_tpu_torch.models.oracle_video import MobiclipVersion
     mf = MobiclipVersion.MOFLEX_3DS
-    res = {}
+    res = {"launches": {}}
     with phase("wavefront"):
+        res["kernel"] = wavefront_kernel_check(
+            ds, mf, gops[0], [[wide_pkts[WIDE[1]][0]]], smi)
         bd = BatchVideoDecoder(W, H, ds, batch=B, native=True, device="cuda")
+        zero_counts()
         wf, ms, wall = [], [], []
         for g in range(NGOPS):
             e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -1113,6 +1257,12 @@ def wavefront_phase(ds, gops, k1_outs, main_oracle, oracle_futs, wide_pkts,
             torch.cuda.synchronize()
             wall.append(time.perf_counter() - t0)
             ms.append(e0.elapsed_time(e1))
+        # one K6 launch per frame round (one shard)
+        res["launches"]["batch"] = read_wavefront_count()
+        if res["launches"]["batch"] != NGOPS * F:
+            raise AssertionError(f"[wavefront] BatchVideoDecoder: "
+                                 f"{res['launches']['batch']} K6 launches "
+                                 f"for {NGOPS * F} frame rounds")
         for g in range(NGOPS):
             if wf[g].shape != k1_outs[g].shape or not (
                     wf[g] == k1_outs[g]).all():
@@ -1135,15 +1285,22 @@ def wavefront_phase(ds, gops, k1_outs, main_oracle, oracle_futs, wide_pkts,
                                   device="cpu")
         levels = [int(probe.scan_packets(fp)["n_levels"].max())
                   for fp in gops[0]]
-        # device launches of the first frame rounds of GOP 0 (a whole
-        # GOP's trace takes minutes to read back): the I-frame, then P
-        pd = BatchVideoDecoder(W, H, ds, batch=B, native=True, device="cuda")
-        l_i, why = device_launches(lambda: pd.decode_frames(gops[0][0]))
-        l_p, why_p = device_launches(
-            lambda: [pd.decode_frames(fp) for fp in gops[0][1:4]])
+        # device launches of the first frame rounds of GOP 0: the I-frame,
+        # then P; in a fresh process: at this point of a whole run, a
+        # profiler session in this process records no device events on
+        # the card, while one in a fresh process does
+        with _cf.ProcessPoolExecutor(
+                1, mp_context=multiprocessing.get_context("spawn")) as one:
+            l_i, why, l_p, why_p = one.submit(round_activities_task,
+                                              gops[0][:4]).result()
         launches = None if l_i is None or l_p is None else (
             l_i + l_p) / 4
         why = why or why_p
+        # one kernel for all of a round's levels: the I-frame round's
+        # activities no longer grow with its levels
+        if launches is not None and abs(l_i - l_p / 3) > 4:
+            raise AssertionError(f"[wavefront] device activities: I-frame "
+                                 f"round {l_i}, P-frame rounds {l_p / 3}")
         res["main"] = {
             "shape": f"B={B} F={F} {W}x{H}", "ms_per_gop": ms,
             "wall_s_per_gop": wall,
@@ -1167,10 +1324,17 @@ def wavefront_phase(ds, gops, k1_outs, main_oracle, oracle_futs, wide_pkts,
             + f" | {smi}")
         for size, pkts in wide_pkts.items():
             dec = WavefrontVideoDecoder(*size, mf, native=True, device="cuda")
+            zero_counts()
             t0 = time.perf_counter()
             got = np.stack([np.concatenate(dec.decode_frame(p))
                             for p in pkts])
             t_dec = time.perf_counter() - t0
+            wlabel = f"decoder_{size[0]}x{size[1]}"
+            res["launches"][wlabel] = read_wavefront_count()
+            if res["launches"][wlabel] != len(pkts):
+                raise AssertionError(f"[wavefront] {wlabel}: "
+                                     f"{res['launches'][wlabel]} K6 launches "
+                                     f"for {len(pkts)} frames")
             exp = wide_futs[size].result()
             if got.shape != exp.shape or not (got == exp).all():
                 bad = np.argwhere((got != exp).any(axis=(1, 2))).ravel()
@@ -1183,8 +1347,14 @@ def wavefront_phase(ds, gops, k1_outs, main_oracle, oracle_futs, wide_pkts,
                 f"per frame | {smi}")
         for cname, r in trans.items():
             src = r["src"]
+            zero_counts()
             st = cli(["decode", str(src), str(src.parent / f"{cname}_wf"),
                       "--engine", "wavefront"])
+            res["launches"][f"cli_{cname}"] = read_wavefront_count()
+            if res["launches"][f"cli_{cname}"] != st["frames"]:
+                raise AssertionError(f"[wavefront] {cname}: "
+                                     f"{res['launches'][f'cli_{cname}']} K6 "
+                                     f"launches for {st['frames']} frames")
             got = {p.suffix: p.read_bytes()
                    for p in sorted(src.parent.glob(f"{cname}_wf.*"))}
             if got != r["oracle_bytes"]:
@@ -1194,7 +1364,8 @@ def wavefront_phase(ds, gops, k1_outs, main_oracle, oracle_futs, wide_pkts,
             log(f"[wavefront] {cname}: decode --engine wavefront -> "
                 f"{ {k: len(v) for k, v in got.items()} } bytes, equal to "
                 f"--engine oracle; {st['frames']} frames at {st['fps']} "
-                f"frames/s | {smi}")
+                f"frames/s; K6 launches {res['launches'][f'cli_{cname}']} "
+                f"| {smi}")
     return res
 
 
@@ -1526,15 +1697,17 @@ def entry_phase(ds, smi) -> dict:
         t_dry = time.perf_counter() - t0
         launches = read_counts()
         pro = read_prologue_counts()
-        if launches[0] < 1 or launches[1] < 1:
+        wf = read_wavefront_count()
+        if launches[0] < 1 or launches[1] < 1 or wf < 1:
             raise AssertionError(f"[entry] dryrun_multichip launches "
-                                 f"{launches}")
+                                 f"{launches}, K6 {wf}")
         line = buf.getvalue().strip()
         log(f"[entry] entry('cuda') fn(*args) {tuple(got.shape)} int32 == "
             f"the oracle's 64x48 I-frame; {line} ({t_dry:.1f} s; launches "
-            f"whole-GOP {launches[0]}, single-frame {launches[1]}) | {smi}")
+            f"whole-GOP {launches[0]}, single-frame {launches[1]}, K6 {wf}) "
+            f"| {smi}")
     return {"dryrun_s": t_dry, "launches": launches, "prologue": pro,
-            "devices": devs}
+            "wavefront": wf, "devices": devs}
 
 
 def warm_phase(smi) -> dict:
@@ -1892,7 +2065,8 @@ def main(argv=None) -> int:
               "false); there is no CPU path", file=sys.stderr)
         return 1
     from mobiclipdecoder_tpu_torch.models.oracle_video import MobiclipVersion
-    from mobiclipdecoder_tpu_torch.ops import executor, prologue_kernels
+    from mobiclipdecoder_tpu_torch.ops import (executor, prologue_kernels,
+                                               wavefront_kernels)
     from mobiclipdecoder_tpu_torch.ops.vmem_engine import (VmemBatchDecoder,
                                                            VmemVideoDecoder)
     from mobiclipdecoder_tpu_torch.ops.residuals import _residuals
@@ -1921,17 +2095,18 @@ def main(argv=None) -> int:
 
     # 2. build: one nvcc per kernel source, started together
     t0 = time.perf_counter()
-    with _cf.ThreadPoolExecutor(2) as tp:
-        for fut in [tp.submit(executor._load),
-                    tp.submit(prologue_kernels._load)]:
+    loaders = (executor._load, prologue_kernels._load,
+               wavefront_kernels._load)
+    with _cf.ThreadPoolExecutor(len(loaders)) as tp:
+        for fut in [tp.submit(load) for load in loaders]:
             fut.result()
     t_load = time.perf_counter() - t0
-    for lib in ("gop_executor", "prologue"):
+    for lib in ("gop_executor", "prologue", "wavefront"):
         built = build.build_seconds.get(lib)
         log(f"[build] {lib}.cu: "
             + (f"nvcc {built:.2f} s" if built is not None
                else "already built in csrc/build")
-            + f"; both loaded in {t_load:.2f} s")
+            + f"; all loaded in {t_load:.2f} s")
         for line in build.build_logs.get(lib, "").splitlines():
             if line.strip():
                 log(f"[build] {line.strip()}")
@@ -1955,6 +2130,9 @@ def main(argv=None) -> int:
     syn_pool.shutdown()
     if kernel_only:
         with phase("kernel_only"):
+            wavefront_kernel_check(ds, mf, gops[0],
+                                   synth_gops(mf, [7], 1, 1, WIDE[1])[0],
+                                   smi)
             for size in WIDE:
                 kernel_vs_plain(mf, synth_gops(mf, [7], 1, 4, size)[0],
                                 f"Moflex {size[0]}x{size[1]}", 4, size)
@@ -2371,6 +2549,29 @@ def main(argv=None) -> int:
         "mobiclipdecoder_tpu/ops/vmem_engine.py:215 (XLA)",
         {k: v[1] for k, v in dense_paths.items()}, "plain_residuals",
         "_residuals", {}))
+    # K6: launches on every path that reaches it, times and bound from
+    # [wavefront] at the main path's GOP 0, the 640x480 I-frame beside
+    wk6 = wavefront["kernel"]
+    wf_paths = {f"wavefront_{k}": v for k, v in wavefront["launches"].items()}
+    wf_paths["dryrun_multichip_32x32"] = entry_res["wavefront"]
+    main_wk = wk6[f"{W}x{H}"]
+    kernels.append({
+        "name": "wavefront_frame", "route": "cuda",
+        "source": "mobiclipdecoder_tpu_torch/csrc/wavefront.cu",
+        "replaces": "mobiclipdecoder_tpu/models/pipeline.py:343 (XLA: "
+                    "decode_frame_core under _decode_batch_jit, :368)",
+        "launches": sum(wf_paths.values()), "launches_by_path": wf_paths,
+        "max_abs_err": max(v["max_abs_err"] for v in wk6.values()),
+        "ms": main_wk["ms"], "plain_ms": main_wk["plain_ms"],
+        "bound_ms": main_wk["bound_ms"], "bound_by": main_wk["bound_by"],
+        "library_ms": None, "plain_on": "card",
+        "plain": "decode_frame_core_plain",
+        "shape": f"B={B} F={F} {W}x{H}, ms per GOP of {F} launches",
+        "serial_depth": main_wk["levels"],
+        "by_geometry": {g: {k: v[k] for k in ("B", "F", "ms", "plain_ms",
+                                              "bound_ms", "bound_by",
+                                              "bytes", "levels")}
+                        for g, v in wk6.items()}})
     for kern in kernels:
         if min(kern["launches_by_path"].values()) < 1:
             raise AssertionError(f"{kern['name']} {kern.get('geometry')}: "

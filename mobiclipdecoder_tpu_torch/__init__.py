@@ -1,8 +1,8 @@
 """mobiclipdecoder_tpu_torch: the Mobiclip decoder's whole-GOP decode path
-ported to PyTorch, with its executor and its device prologue as
-hand-written CUDA kernels for NVIDIA Hopper (sm_90a), at DS 256x192, 3DS
-400x240 and Wii 640x480; and the rest of the JAX package's device code
-(the wavefront engine, the encoder's SAD volume, the batched audio ops) as
+ported to PyTorch, with its executor, its device prologue and the
+wavefront engine as hand-written CUDA kernels for NVIDIA Hopper (sm_90a),
+at DS 256x192, 3DS 400x240 and Wii 640x480; and the rest of the JAX
+package's device code (the encoder's SAD volume, the batched audio ops) as
 plain torch on the card.
 
 The JAX package ``mobiclipdecoder_tpu`` is the reference this port is held
@@ -40,8 +40,10 @@ Layers, from the entry point down:
                        ops/executor_ref.py is its plain PyTorch version
   state.py             reference-ring layout and the kernel's intra tables
   models/pipeline.py   the wavefront engine: WavefrontVideoDecoder, one
-                       frame as MC, residuals and intra dependency levels
-                       in batched torch (ops/idct.py: its IDCTs)
+                       frame as MC, residuals and intra dependency levels:
+                       on the card one launch of K6 (ops/wavefront_kernels.py,
+                       csrc/wavefront.cu), on the CPU batched torch
+                       (ops/idct.py: its IDCTs)
   parallel/batch.py    BatchVideoDecoder: B streams on the wavefront engine,
                        on one device or split over several
   models/encoder.py    MobiclipEncoder (host), whose motion search takes

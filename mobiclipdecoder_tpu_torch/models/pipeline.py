@@ -1,4 +1,5 @@
-"""Wavefront reconstruction engine: executes FramePlans with batched torch.
+"""Wavefront reconstruction engine: executes FramePlans on the card with
+one kernel per frame round, on the CPU with batched torch.
 
 Port of ``mobiclipdecoder_tpu/models/pipeline.py`` (the JAX package's
 ``--engine tpu-xla``), the repository's second, independent decode
@@ -23,12 +24,19 @@ function carries a leading stream axis B.  A frame is built in a flat
 (the JAX engine's ``mode="drop"``) and is dropped at the end.  Only that
 sentinel may repeat within one scatter: MC leaves are disjoint, and so
 are the ops of one level.
+
+``decode_frame_core`` takes the device from its tensors: on the card it is
+one launch of the hand-written kernel K6 (``ops/wavefront_kernels.py``,
+``csrc/wavefront.cu``), the three phases and every intra level in one
+block per stream; on the CPU it is ``decode_frame_core_plain``, the torch
+code below, which is also what K6 is held against.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from ..ops import wavefront_kernels
 from ..ops.idct import idct4, idct8
 from ..ops.intra_tables import AVG2, AVG3, COPY, DC, KIND, PASS, TAPS
 from ..utils.device import check_device, indexed
@@ -54,18 +62,18 @@ def prepare_plan(plan: FramePlan) -> dict:
     nr = max(plan.resid.shape[0], 1)
     resid = _pad_rows(plan.resid.astype(np.int32), nr)
     resid_coef = _pad_rows(plan.resid_coef.astype(np.int32), nr)
-    intra = plan.intra.astype(np.int64)
     L = max(plan.n_levels, 1)
-    levels: list[list[int]] = [[] for _ in range(L)]
-    for i in range(intra.shape[0]):
-        levels[int(intra[i, 9]) - 1].append(i)
-    K = max((len(b) for b in levels), default=1) or 1
+    # each op's level and its slot in the level, in emission order
+    lv = plan.intra[:, 9].astype(np.int64) - 1
+    order = np.argsort(lv, kind="stable")
+    counts = np.bincount(lv, minlength=L)
+    K = max(int(counts.max(initial=0)), 1)
+    slot = np.arange(order.size) - np.repeat(np.cumsum(counts) - counts,
+                                             counts)
     iops = np.zeros((L, K, 11), np.int32)
     icoef = np.zeros((L, K, 64), np.int32)
-    for lv, b in enumerate(levels):
-        for j, i in enumerate(b):
-            iops[lv, j] = intra[i].astype(np.int32)
-            icoef[lv, j] = plan.intra_coef[i]
+    iops[lv[order], slot] = plan.intra[order]
+    icoef[lv[order], slot] = plan.intra_coef[order]
     seqmap = np.concatenate([plan.seq_y, plan.seq_uv], axis=0).astype(np.int32)
     return dict(mc=mc, resid=resid, resid_coef=resid_coef,
                 iops=iops, icoef=icoef, seqmap=seqmap, n_levels=L)
@@ -330,23 +338,46 @@ def _intra_level_kernel(buf, seqmap, ops, res8, H, S):
     return _scatter(buf, flat, out)
 
 
-def decode_frame_core(ring, mc, resid, resid_coef, iops, icoef, seqmap,
-                      n_levels, H: int, S: int):
-    """One frame of B streams: ring (B, 6, HH, S) int32 (slot 0 stale, slot
-    r the frame r back), plan tensors with a leading B on the ring's
-    device, ``n_levels`` the host count of levels to run (levels past a
-    stream's own are size-0 padding).  Returns (B, HH, S) int32."""
+def decode_frame_core_plain(ring, mc, resid, resid_coef, iops, icoef,
+                            seqmap, n_levels, H: int, S: int):
+    """The plain torch version of ``decode_frame_core`` (the CPU's path,
+    and the reference K6 is held against on the card): one torch op
+    sequence per phase and per intra level."""
     HH = H + H // 2
     B = ring.shape[0]
     buf = torch.zeros((B, HH * S + 1), dtype=torch.int32, device=ring.device)
     buf = _mc_kernel(ring, buf, mc, H, S)
     buf = _resid_kernel(buf, resid, resid_coef, H, S)
+    if isinstance(n_levels, torch.Tensor):
+        n_levels = n_levels.cpu().numpy()
     L = min(int(np.max(n_levels)), iops.shape[1])
     res8 = _residual8(icoef[:, :L], iops[:, :L, :, 3] != 4)
     for lv in range(L):
         buf = _intra_level_kernel(buf, seqmap, iops[:, lv], res8[:, lv],
                                   H, S)
     return buf[:, :HH * S].reshape(B, HH, S)
+
+
+def decode_frame_core(ring, mc, resid, resid_coef, iops, icoef, seqmap,
+                      n_levels, H: int, S: int):
+    """One frame of B streams: ring (B, 6, HH, S) int32 (slot 0 stale, slot
+    r the frame r back), plan tensors with a leading B on the ring's
+    device, ``n_levels`` the count of levels to run, on the host (an int or
+    (B,) array) or a (B,) int32 tensor on the ring's device (levels past a
+    stream's own are size-0 padding).  Returns (B, HH, S) int32.
+
+    On CUDA tensors one launch of K6 (``ops/wavefront_kernels.py``), which
+    runs each stream's own levels; on CPU tensors the plain torch
+    ``decode_frame_core_plain``; any other device raises."""
+    if ring.device.type == "cpu":
+        return decode_frame_core_plain(ring, mc, resid, resid_coef, iops,
+                                       icoef, seqmap, n_levels, H, S)
+    if not isinstance(n_levels, torch.Tensor):
+        n_levels = torch.from_numpy(np.array(np.broadcast_to(
+            np.asarray(n_levels, np.int32), (ring.shape[0],)))).to(
+                ring.device)
+    return wavefront_kernels.wavefront_frame(
+        ring, mc, resid, resid_coef, iops, icoef, seqmap, n_levels, H, S)
 
 
 def upload_plan(arrays: dict, device) -> dict:

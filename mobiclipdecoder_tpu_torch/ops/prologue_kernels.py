@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from ..utils import build
+from ..utils.device import launch, on_one_card
 
 prologue_launches = 0
 residual_launches = 0
@@ -72,34 +73,6 @@ def _load_host():
     return _host_lib
 
 
-def _on_one_card(**tensors) -> torch.device:
-    """Every tensor int32, contiguous and on one CUDA device; returns it."""
-    dev = None
-    for name, t in tensors.items():
-        if t.dtype != torch.int32 or not t.is_contiguous():
-            raise ValueError(f"{name}: expected a contiguous int32 tensor, "
-                             f"got {t.dtype} (contiguous "
-                             f"{t.is_contiguous()})")
-        if t.device.type != "cuda":
-            raise ValueError(f"{name} is on {t.device}: the prologue "
-                             f"kernels take CUDA tensors")
-        if dev is not None and t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, not {dev}")
-        dev = t.device
-    return dev
-
-
-def _launch(fn, dev: torch.device, *args) -> None:
-    # the library's runtime launches on the device current on this thread;
-    # the launch checks that it is the tensors' device
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(*args, dev.index, stream)
-    if rc != 0:
-        raise RuntimeError(f"prologue kernel launch on {dev} failed: CUDA "
-                           f"error {rc}")
-
-
 def _sblob_shapes(ops3, sbits, idx, v32, ops, resid) -> tuple:
     """(N, B, nnzb) of K5's operands, or ValueError unless ops3 (N, 3),
     sbits (ceil(N / 32),), idx (B, nnzb), v32 (B, nnzb / 2), ops (N, 4)
@@ -133,12 +106,12 @@ def prologue_sblob(ops3: torch.Tensor, sbits: torch.Tensor,
     is written: neither needs a fill.  Each stream's in-range indices
     must ascend, unique (the JAX package's contract)."""
     global prologue_launches
-    dev = _on_one_card(ops3=ops3, sbits=sbits, idx=idx, v32=v32, ops=ops,
-                       resid=resid)
+    dev = on_one_card(ops3=ops3, sbits=sbits, idx=idx, v32=v32, ops=ops,
+                      resid=resid)
     n, B, nnzb = _sblob_shapes(ops3, sbits, idx, v32, ops, resid)
-    _launch(_load().mobi_prologue_sblob_launch, dev, ops3.data_ptr(),
-            sbits.data_ptr(), idx.data_ptr(), v32.data_ptr(), ops.data_ptr(),
-            resid.data_ptr(), B, nnzb, n)
+    launch(_load().mobi_prologue_sblob_launch, dev, ops3.data_ptr(),
+           sbits.data_ptr(), idx.data_ptr(), v32.data_ptr(), ops.data_ptr(),
+           resid.data_ptr(), B, nnzb, n)
     prologue_launches += 1
 
 
@@ -147,15 +120,15 @@ def residual_rows(coefs: torch.Tensor, sizes: torch.Tensor,
     """K4, dense form: coefs (N, 64), sizes (N,) in {4, 8} -> resid
     (N, 64)."""
     global residual_launches
-    dev = _on_one_card(coefs=coefs, sizes=sizes, resid=resid)
+    dev = on_one_card(coefs=coefs, sizes=sizes, resid=resid)
     n = coefs.shape[0]
     if (coefs.dim() != 2 or coefs.shape[1] != 64 or n < 1
             or tuple(sizes.shape) != (n,) or resid.shape != coefs.shape):
         raise ValueError(f"coefs {tuple(coefs.shape)}, sizes "
                          f"{tuple(sizes.shape)}, resid {tuple(resid.shape)}: "
                          f"expected (N, 64), (N,), (N, 64)")
-    _launch(_load().mobi_residual_rows_launch, dev, coefs.data_ptr(),
-            sizes.data_ptr(), resid.data_ptr(), n)
+    launch(_load().mobi_residual_rows_launch, dev, coefs.data_ptr(),
+           sizes.data_ptr(), resid.data_ptr(), n)
     residual_launches += 1
 
 

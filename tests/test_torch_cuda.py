@@ -1,9 +1,11 @@
 """Tests of the port that need an NVIDIA GPU: the hand-written CUDA
-executor and prologue kernels against their plain PyTorch versions, and
+executor, prologue and wavefront kernels against their plain PyTorch
+versions, and
 the decoder on the card against the decoder on the CPU.  They skip where no
 CUDA device is present (the kernels have no CPU mode; their per-op and
 per-row code is checked on the CPU through the host builds in
-test_torch_executor.py and test_torch_prologue_kernel.py).  This file imports no
+test_torch_executor.py, test_torch_prologue_kernel.py and
+test_torch_wavefront_kernel.py).  This file imports no
 JAX and nothing of the JAX package, so it runs on a machine without it:
 
     python -m pytest tests/test_torch_cuda.py -q
@@ -180,7 +182,7 @@ def test_cuda_kernel_matches_plain_on_edge_gops(cuda, source):
 
 @pytest.mark.cuda
 def test_cuda_wavefront_batch_matches_cpu(cuda):
-    """The wavefront engine (plain torch) on the card == on the CPU."""
+    """The wavefront engine on the card (K6) == on the CPU (plain torch)."""
     from mobiclipdecoder_tpu_torch.parallel.batch import BatchVideoDecoder
     frames = _frames(MobiclipVersion.MODS_DS, (5, 6, 7), 4)
     got = BatchVideoDecoder(W, H, MobiclipVersion.MODS_DS, batch=3,
@@ -390,3 +392,75 @@ def test_cuda_blob_path_launches_one_prologue_kernel_and_no_fill(cuda):
     assert sum("mobi_prologue_sblob" in n for n in names) == 1, names
     assert not [n for n in names if "fill" in n.lower()
                 or "mobi_residual_rows" in n], names
+
+
+def _wavefront_round(cuda, version, size, nb, nframes):
+    """The frame rounds of nb synthesized streams, scanned and uploaded
+    once: (BatchVideoDecoder, per round its plan tensors on the card)."""
+    from mobiclipdecoder_tpu_torch.parallel.batch import (BatchVideoDecoder,
+                                                          upload_rounds)
+    synths = [StreamSynthesizer(*size, version, seed=40 + b)
+              for b in range(nb)]
+    bd = BatchVideoDecoder(*size, version, batch=nb, device=cuda)
+    rounds = [bd.scan_packets([s.iframe(0x18) if f == 0 else s.pframe()
+                               for s in synths]) for f in range(nframes)]
+    return bd, upload_rounds(rounds, cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("version,size,nb,nframes", [
+    (MobiclipVersion.MODS_DS, (256, 192), 8, 2),
+    (MobiclipVersion.MOFLEX_3DS, (640, 480), 1, 1)], ids=["ds-b8", "640x480"])
+def test_cuda_wavefront_kernel_matches_plain(cuda, version, size, nb,
+                                             nframes):
+    """K6 == decode_frame_core_plain on the card, exact, for a DS B=8 I-frame
+    round and the P-frame round after it (a random ring under both), and a
+    640x480 I-frame; one K6 launch per round."""
+    from mobiclipdecoder_tpu_torch.models import pipeline as pp
+    from mobiclipdecoder_tpu_torch.ops import wavefront_kernels as wk
+    bd, ups = _wavefront_round(cuda, version, size, nb, nframes)
+    h, s = size[1], bd.stride
+    ring = torch.randint(0, 256, bd.rings[0].shape, dtype=torch.int32,
+                         device=cuda)
+    for t in ups:
+        args = (ring, t["mc"], t["resid"], t["resid_coef"], t["iops"],
+                t["icoef"], t["seqmap"], t["n_levels"], h, s)
+        before = wk.wavefront_launches
+        got = pp.decode_frame_core(*args)
+        assert wk.wavefront_launches == before + 1
+        want = pp.decode_frame_core_plain(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        ring = torch.roll(ring, 1, dims=1)
+        ring[:, 0] = got
+
+
+@pytest.mark.cuda
+def test_cuda_batch_decoder_launches_k6_once_per_round(cuda, monkeypatch):
+    """BatchVideoDecoder on the card: one K6 launch per frame round and
+    shard, and the plain version never runs (patched to raise); frames ==
+    the CPU decoder's."""
+    from mobiclipdecoder_tpu_torch.models import pipeline as pp
+    from mobiclipdecoder_tpu_torch.ops import wavefront_kernels as wk
+    from mobiclipdecoder_tpu_torch.parallel.batch import BatchVideoDecoder
+    v = MobiclipVersion.MODS_DS
+    frames = _frames(v, (61, 62, 63, 64), 3)
+    want = BatchVideoDecoder(W, H, v, batch=4, device="cpu").decode_gop(frames)
+
+    def plain(*a, **k):
+        raise AssertionError("the plain version ran on the card's path")
+
+    monkeypatch.setattr(pp, "decode_frame_core_plain", plain)
+    before = wk.wavefront_launches
+    got = BatchVideoDecoder(W, H, v, batch=4, device=cuda).decode_gop(frames)
+    assert wk.wavefront_launches == before + 3
+    np.testing.assert_array_equal(got, want)
+    two = BatchVideoDecoder(W, H, v, batch=4, devices=[cuda, cuda])
+    before = wk.wavefront_launches
+    np.testing.assert_array_equal(
+        np.stack([two.decode_frames(fp) for fp in frames]), want)
+    assert wk.wavefront_launches == before + 6
+    dec = pp.WavefrontVideoDecoder(W, H, v, device=cuda)
+    before = wk.wavefront_launches
+    dec.decode_frame(frames[0][0])
+    assert wk.wavefront_launches == before + 1
