@@ -2,9 +2,10 @@
 
     python3 chip_smoke.py [--kernel-only | --multi-device]
 
-Builds the executor kernel, the prologue kernels and the wavefront
-engine's kernel from mobiclipdecoder_tpu_torch/csrc with nvcc (one nvcc
-per source, started together), holds them against their plain PyTorch
+Builds the executor kernel, the prologue kernels, the wavefront engine's
+kernel, the encoder's SAD-volume kernel and the audio kernels from
+mobiclipdecoder_tpu_torch/csrc with nvcc (one nvcc per source, five
+started together), holds them against their plain PyTorch
 versions, drives the main path (the fused whole-GOP decode of 8 DS MODS
 256x192 streams, 2 GOPs of 24 frames) and the per-frame path, checks both
 against the sequential oracle, and times the kernels and the decoder.
@@ -46,16 +47,29 @@ Then it covers the other geometries and the user's entry points:
                containers == `--engine oracle` bytes; K6 launches per path,
                ms per GOP, frames/s, intra levels and device launches per
                I-frame and P-frame round (within 4 of each other);
-  [encode]     the encoder at all three sizes (quantizer 0x14, gop 4, refs
-               2, me_range 6, 3 frames, Moflex profile): its SAD volumes on
-               the card == on the CPU, its bytes == the CPU encoder's, its
-               packets decoded by the executor and by the wavefront engine
-               == oracle; `encode` then `decode --engine cuda` == `decode
-               --engine oracle` bytes; SadVolume ms at 256x192, range 16,
-               R=5;
-  [audio]      IMA ADPCM scans on the card (64 channels x 1 s) == the host
-               decoder, FastAudioBatchDecoder on the card (16 channels x 50
-               packets) == the host decoders; the ms of each;
+  [encode]     K7 (csrc/sad.cu, the SAD volume) == its plain version on
+               the card, exact int32, at all three sizes with the encoder's
+               defaults (range 16, 5 references of encoder_frames, the
+               oldest 0/255 noise), K7 and the plain version timed in turns
+               beside K7's bound, and the whole SadVolume call (its copy to
+               host memory included); the encoder at all three sizes
+               (quantizer 0x14, gop 4, refs 2, me_range 6, 3 frames, Moflex
+               profile): its SAD volumes on the card == on the CPU, its
+               bytes == the CPU encoder's, its packets decoded by the
+               executor and by the wavefront engine == oracle; a 640x480
+               encode at the encoder's defaults (3 frames): its packets
+               decoded by the executor == oracle, its s per frame; `encode`
+               then `decode --engine cuda` == `decode --engine oracle`
+               bytes; K7's launches on each path;
+  [audio]      K9 (the IMA ADPCM scans) == its plain version on the card at
+               64 channels x 1 s on random bytes and the four pinned cases
+               of tests/test_torch_audio.py, and decode_packets on the card
+               == the host decoder on each; K8 (the FastAudio lattice) ==
+               its plain version on the card over 4 rounds of 256
+               channels, and FastAudioBatchDecoder on the card (16
+               channels x 50 packets) == the host decoders and the plain
+               version round by round; each kernel and its plain version
+               timed in turns beside its bound; K8's and K9's launches;
   [sharded]    decode_gop_fused_sharded over every visible GPU (cuda:0
                twice on a one-card machine): the main path's 8 streams x 2
                GOPs == the unsharded executor's frames and ring, and the
@@ -89,14 +103,14 @@ when [wavefront] starts and shut down after [encode].
 
 Every phase raises on a mismatch.  Before each run of a user path that
 reaches the executor or K6 the launch counters of the executor, the
-prologue kernels and K6 are set to 0, and they are read after it (the
+prologue kernels and K6-K9 are set to 0, and they are read after it (the
 kernels line gives each
 kernel's launches by path); they also show which form of the executor ran
 (the working plane in shared memory at 256x192 and 400x240, in global
 memory at 640x480).  ``--kernel-only`` stops after the build (whose ptxas
-report it prints), [prologue], K6 against its plain version and the
-executor-vs-plain checks at every geometry, as a GOP and at F=1, and
-prints no result line.
+report it prints), [prologue], K6 against its plain version, the
+executor-vs-plain checks at every geometry, as a GOP and at F=1, and K7,
+K8 and K9 against their plain versions, and prints no result line.
 ``--multi-device`` runs the build, the main path's decode and then only
 [sharded], [entry], [multi_gpu] and
 [scaling] over every visible GPU (on a machine with several GPUs: the
@@ -156,6 +170,9 @@ ENC = dict(quantizer=0x14, gop=4, refs=2, me_range=6)   # [encode]
 ENC_FRAMES = 3
 IMA_CHANNELS, IMA_SAMPLES = 64, 32768     # [audio]: 1 s at 32768 Hz
 FA_CHANNELS, FA_PACKETS = 16, 50
+FA_CORPUS, FA_CORPUS_ROUNDS = 256, 4      # [audio]: a corpus job's streams
+SAD_RANGE, SAD_REFS = 16, 5               # the encoder's defaults
+ENC_WIDE = (640, 480)                     # [encode] at the defaults
 TRACE_GOPS = 20                     # [trace]: decode_gops under the profiler
 SPAN_NAMES = ("mobiclip.scan", "mobiclip.pack", "mobiclip.device_decode")
 TRACE_WINDOW = "chip_smoke.decode_gops"
@@ -186,8 +203,13 @@ def smi_line() -> str:
 
 
 def zero_counts() -> None:
-    from mobiclipdecoder_tpu_torch.ops import (executor, prologue_kernels,
+    from mobiclipdecoder_tpu_torch.ops import (audio_kernels, executor,
+                                               mesearch_kernels,
+                                               prologue_kernels,
                                                wavefront_kernels)
+    mesearch_kernels.sad_launches = 0
+    audio_kernels.fastaudio_launches = 0
+    audio_kernels.ima_launches = 0
     wavefront_kernels.wavefront_launches = 0
     executor.launches = 0
     executor.frame_launches = 0
@@ -563,19 +585,21 @@ def prologue_work(blob, nb: int, nct: int, nnzb: int) -> dict:
     n4 = int(np.unpackbits(sbits.view(np.uint8), bitorder="little")[
         :nrows].sum())
     row_ops = n4 * ROW_OPS[4] + (nrows - n4) * ROW_OPS[8]
-
-    def bound(nbytes: int, nops: int) -> dict:
-        tb, to = nbytes / HBM_BYTES_PER_S, nops / OPS_PER_S
-        return {"bytes": nbytes, "ops": nops,
-                "bound_ms": max(tb, to) * 1e3,
-                "bound_by": "bytes" if tb >= to else "operations"}
     return {
         "rows": nrows, "nnz": nnz, "nnzb": nnzb, "size4_rows": n4,
-        "sblob": bound(nrows * (12 + 16 + 256) + sbits.size * 4
-                       + nb * nnzb * 6,
-                       row_ops + nrows * OPS_PER_OP_ROW
-                       + nb * nnzb * OPS_PER_NONZERO),
-        "rows_dense": bound(nrows * (256 + 4 + 256), row_ops)}
+        "sblob": roofline(nrows * (12 + 16 + 256) + sbits.size * 4
+                          + nb * nnzb * 6,
+                          row_ops + nrows * OPS_PER_OP_ROW
+                          + nb * nnzb * OPS_PER_NONZERO),
+        "rows_dense": roofline(nrows * (256 + 4 + 256), row_ops)}
+
+
+def roofline(nbytes: int, nops: int) -> dict:
+    """bound_ms: the larger of the bytes over the memory rate and the
+    operations over the 32-bit rate, and which of the two it is."""
+    tb, to = nbytes / HBM_BYTES_PER_S, nops / OPS_PER_S
+    return {"bytes": nbytes, "ops": nops, "bound_ms": max(tb, to) * 1e3,
+            "bound_by": "bytes" if tb >= to else "operations"}
 
 
 def extreme_blob(seed: int):
@@ -1061,20 +1085,6 @@ def encode_task(size, device: str):
     return pkts, vols, time.perf_counter() - t0
 
 
-def cuda_ms(fn, reps=10) -> float:
-    """Mean ms of fn() on the card over reps calls (CUDA events), after a
-    warm-up call."""
-    fn()
-    torch.cuda.synchronize()
-    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    e0.record()
-    for _ in range(reps):
-        fn()
-    e1.record()
-    torch.cuda.synchronize()
-    return e0.elapsed_time(e1) / reps
-
-
 def device_launches(fn) -> tuple[int | None, str]:
     """(device activities (kernels, copies, fills) that torch.profiler sees
     while fn() runs, or None, and why not).  fn() runs either way; a
@@ -1369,19 +1379,243 @@ def wavefront_phase(ds, gops, k1_outs, main_oracle, oracle_futs, wide_pkts,
     return res
 
 
+# ------------------------------------------------ K7, K8, K9: side kernels
+
+def read_side_counts() -> tuple[int, int, int]:
+    """(K7, K8, K9) launches since zero_counts."""
+    from mobiclipdecoder_tpu_torch.ops import audio_kernels, mesearch_kernels
+    return (mesearch_kernels.sad_launches, audio_kernels.fastaudio_launches,
+            audio_kernels.ima_launches)
+
+
+def sad_work(H: int, W: int, R: int, r: int) -> dict:
+    """What K7 must do for one volume: each input read once (cur and the
+    R references) and the volume written once, int32; one operation per
+    absolute difference at least."""
+    side = 2 * r + 1
+    return roofline(4 * (H * W * (1 + R) + side * side * R * (H // 8)
+                         * (W // 8)), side * side * R * H * W)
+
+
+def fastaudio_work(B: int, N: int) -> dict:
+    """What K8 must do for B channels of N samples: excit read and pcm
+    (int16) written, coef and the state read and written once; per sample
+    17 multiply-shifts, 17 adds or subtracts and 2 clamps, one operation
+    each at least.  ``serial_steps``: each channel's chain, N samples of
+    17 dependent multiply-shifts."""
+    return {**roofline(B * N * (4 + 2) + B * 4 * (8 + 8 + 8 + 2),
+                       36 * B * N), "serial_steps": N}
+
+
+def ima_work(M: int, N: int) -> dict:
+    """What K9 must do for M rows of N nibbles: nibbles read and samples
+    written (int32), the two states and the 97 table entries read once;
+    two clamped adds per nibble (the two chains), one operation each at
+    least."""
+    return roofline(4 * (2 * M * N + 2 * M + 97), 2 * M * N)
+
+
+def sad_planes(size):
+    """cur (H, W) and SAD_REFS references of encoder_frames(size), uint8:
+    frame SAD_REFS the target, frames SAD_REFS - 1 .. 0 the references
+    (most recent first), the oldest replaced by 0/255 noise."""
+    w, h = size
+    fr = [f[0] for f in encoder_frames(size, SAD_REFS + 1)]
+    refs = fr[SAD_REFS - 1::-1]
+    refs[-1] = (255 * (np.random.default_rng(w).random((h, w)) < 0.5)
+                ).astype(np.uint8)
+    return fr[SAD_REFS], refs
+
+
+def sad_kernel_check(sizes, smi) -> dict:
+    """K7 == _sad8_volume_plain on the card, exact int32, at each size with
+    the encoder's defaults (range SAD_RANGE, SAD_REFS references, sad_planes);
+    K7 and the plain version timed in turns (median of 20, each behind the
+    spin), beside K7's bound; the whole SadVolume call (upload, K7, the
+    copy of the volume to pageable host memory; host clock, median of 5)."""
+    from mobiclipdecoder_tpu_torch.ops import mesearch_kernels as mk
+    from mobiclipdecoder_tpu_torch.ops.mesearch import (SadVolume,
+                                                        _sad8_volume_plain)
+    res = {}
+    for size in sizes:
+        label = f"{size[0]}x{size[1]}"
+        cur_np, refs_np = sad_planes(size)
+        cur = torch.from_numpy(cur_np.astype(np.int32)).cuda()
+        refs = torch.from_numpy(np.stack(refs_np).astype(np.int32)).cuda()
+        vol = mk.sad_volume(cur, refs, SAD_RANGE)
+        err = max_err(vol, _sad8_volume_plain(cur, refs, SAD_RANGE))
+        if err != 0:
+            raise AssertionError(f"K7 {label}: max abs err {err} against "
+                                 f"the plain version")
+        ms = timed_turns({
+            "k7": lambda: mk.sad_volume(cur, refs, SAD_RANGE),
+            "plain": lambda: _sad8_volume_plain(cur, refs, SAD_RANGE)})
+        walls = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            sv = SadVolume(cur_np, refs_np, SAD_RANGE, device="cuda")
+            walls.append((time.perf_counter() - t0) * 1e3)
+        if not np.array_equal(sv.vol, vol.cpu().numpy()):
+            raise AssertionError(f"K7 {label}: SadVolume's volume differs")
+        work = sad_work(size[1], size[0], SAD_REFS, SAD_RANGE)
+        res[label] = {"range": SAD_RANGE, "R": SAD_REFS, "max_abs_err": err,
+                      "top_sad": int(vol[:, -1].max()), "ms": ms["k7"],
+                      "plain_ms": ms["plain"],
+                      "sad_volume_call_ms": float(np.median(walls)), **work}
+        log(f"[sad] K7 == the plain version on the card, {label} range "
+            f"{SAD_RANGE} R={SAD_REFS} (0/255 reference, top SAD "
+            f"{res[label]['top_sad']}): K7 {ms['k7']:.4f} ms vs plain "
+            f"{ms['plain']:.3f} ms (median of 20 in turns, behind the "
+            f"spin); bound {work['bound_ms'] * 1e3:.2f} us "
+            f"({work['bound_by']}: {work['bytes'] / 1e6:.2f} MB), "
+            f"K7/bound {ms['k7'] / work['bound_ms']:.1f}x; the whole "
+            f"SadVolume call {res[label]['sad_volume_call_ms']:.3f} ms "
+            f"(host clock, median of 5) | {smi}")
+    return res
+
+
+def ima_cases() -> list:
+    """(label, body (IMA_CHANNELS, IMA_SAMPLES / 2) uint8, index0, last0):
+    random bytes, then the four pinned cases of tests/test_torch_audio.py
+    _case at full length: one nibble repeated over the first 3/4 of each
+    row (0 walks the step index down to 0, 7 up to 88 and the samples up,
+    15 the samples down), a random tail."""
+    rng = np.random.default_rng(21)
+    shape = (IMA_CHANNELS, IMA_SAMPLES // 2)
+    out = [("random", rng.integers(0, 256, shape, dtype=np.uint8),
+            rng.integers(0, 89, IMA_CHANNELS).astype(np.int32),
+            rng.integers(-32768, 32768, IMA_CHANNELS).astype(np.int32))]
+    for name, run, last in (("index-floor", 0, None),
+                            ("index-ceiling", 7, None),
+                            ("clamp-high", 7, 32000),
+                            ("clamp-low", 15, -32000)):
+        nib = np.full((IMA_CHANNELS, IMA_SAMPLES), run, np.uint8)
+        nib[:, 3 * IMA_SAMPLES // 4:] = rng.integers(
+            0, 16, (IMA_CHANNELS, IMA_SAMPLES // 4))
+        body = (nib[:, 0::2] | (nib[:, 1::2] << 4)).astype(np.uint8)
+        index0 = rng.integers(0, 89, IMA_CHANNELS).astype(np.int32)
+        last0 = rng.integers(-32768, 32768, IMA_CHANNELS).astype(np.int32)
+        if last is not None:
+            last0[:] = last
+        out.append((name, body, index0, last0))
+    return out
+
+
+def nibbles_on_card(body: np.ndarray) -> torch.Tensor:
+    """(C, L) uint8 packet bytes -> (C, 2L) int32 nibbles on the card, low
+    first (decode_packets' order)."""
+    b = torch.from_numpy(body.astype(np.int32)).cuda()
+    return torch.stack([b & 0xF, b >> 4], dim=-1).reshape(b.shape[0], -1)
+
+
+def fa_round(decs, pkts) -> tuple[np.ndarray, np.ndarray]:
+    """The host half of a FastAudio round (FastAudioBatchDecoder.decode's):
+    each channel's packet -> (excitation (C, 256), coefs (C, 8)) int32."""
+    ex = np.zeros((len(decs), 256), np.int32)
+    cf = np.zeros((len(decs), 8), np.int32)
+    for ch, d in enumerate(decs):
+        d.data, d.offset = pkts[ch], 0
+        out, coef = d.excitation()
+        ex[ch], cf[ch] = out, coef
+    return ex, cf
+
+
+def audio_kernel_check(smi) -> dict:
+    """K9 == decode_nibbles_plain on the card, exact int32, on each of
+    ima_cases; K8 == fastaudio_synth_plain on the card over FA_CORPUS_ROUNDS
+    rounds of FA_CORPUS channels (random packets, the state carried), and
+    on the rounds' state after the last; each kernel and its plain version
+    timed in turns behind the spin, beside the kernel's bound: K9 at
+    IMA_CHANNELS x IMA_SAMPLES, K8 one round at FA_CHANNELS and at
+    FA_CORPUS channels."""
+    from mobiclipdecoder_tpu_torch.models.audio_fastaudio import (
+        FastAudioDecoder)
+    from mobiclipdecoder_tpu_torch.ops import audio_kernels as ak
+    from mobiclipdecoder_tpu_torch.ops.adpcm import decode_nibbles_plain
+    from mobiclipdecoder_tpu_torch.ops.audio_lpc import fastaudio_synth_plain
+    res = {"ima": {"cases": {}}, "fastaudio": {}}
+    for label, body, idx0, last0 in ima_cases():
+        nib = nibbles_on_card(body)
+        i0, l0 = (torch.from_numpy(x).cuda() for x in (idx0, last0))
+        err = max_err(ak.ima_scan(nib, i0, l0),
+                      decode_nibbles_plain(nib, i0, l0))
+        if err != 0:
+            raise AssertionError(f"K9 {label}: max abs err {err} against "
+                                 f"the plain version")
+        res["ima"]["cases"][label] = err
+        if label == "random":
+            ms = timed_turns({"k9": lambda: ak.ima_scan(nib, i0, l0),
+                              "plain": lambda: decode_nibbles_plain(nib, i0,
+                                                                    l0)})
+            res["ima"].update(shape=f"{IMA_CHANNELS}x{IMA_SAMPLES}",
+                              ms=ms["k9"], plain_ms=ms["plain"],
+                              **ima_work(IMA_CHANNELS, IMA_SAMPLES))
+    k9 = res["ima"]
+    k9["max_abs_err"] = max(k9["cases"].values())
+    log(f"[audio] K9 == the plain version on the card, {k9['shape']} "
+        f"({', '.join(k9['cases'])}): K9 {k9['ms']:.4f} ms vs "
+        f"plain {k9['plain_ms']:.3f} ms (median of 20 in turns, behind the "
+        f"spin); bound {k9['bound_ms'] * 1e3:.2f} us ({k9['bound_by']}), "
+        f"K9/bound {k9['ms'] / k9['bound_ms']:.1f}x | {smi}")
+    rng = np.random.default_rng(22)
+    decs = [FastAudioDecoder() for _ in range(FA_CORPUS)]
+    state_k = [torch.zeros((FA_CORPUS, 8), dtype=torch.int32).cuda(),
+               torch.zeros(FA_CORPUS, dtype=torch.int32).cuda()]
+    state_p = [t.clone() for t in state_k]
+    err = 0
+    for _ in range(FA_CORPUS_ROUNDS):
+        pkts = [rng.integers(0, 256, 40, dtype=np.uint8).tobytes()
+                for _ in range(FA_CORPUS)]
+        ex, cf = (torch.from_numpy(a).cuda() for a in fa_round(decs, pkts))
+        pk, *state_k = ak.fastaudio_synth(ex, cf, *state_k)
+        pp, *state_p = fastaudio_synth_plain(ex, cf, *state_p)
+        err = max(err, max_err(pk, pp), *(max_err(a, b) for a, b in
+                                           zip(state_k, state_p)))
+    if err != 0:
+        raise AssertionError(f"K8 {FA_CORPUS} channels: max abs err {err} "
+                             f"against the plain version")
+    for nch in (FA_CHANNELS, FA_CORPUS):
+        args = (ex[:nch].contiguous(), cf[:nch].contiguous(),
+                state_k[0][:nch].contiguous(), state_k[1][:nch].contiguous())
+        ms = timed_turns({"k8": lambda: ak.fastaudio_synth(*args),
+                          "plain": lambda: fastaudio_synth_plain(*args)},
+                         reps=3, warm=1)
+        res["fastaudio"][f"{nch}x256"] = {
+            "ms": ms["k8"], "plain_ms": ms["plain"],
+            **fastaudio_work(nch, 256)}
+    res["fastaudio"]["max_abs_err"] = err
+    fa = res["fastaudio"]
+    log(f"[audio] K8 == the plain version on the card over "
+        f"{FA_CORPUS_ROUNDS} rounds of {FA_CORPUS} channels, state carried; "
+        f"one round of 256 samples: "
+        + ", ".join(f"{k} channels K8 {fa[k]['ms']:.4f} ms vs plain "
+                    f"{fa[k]['plain_ms']:.1f} ms (bound "
+                    f"{fa[k]['bound_ms'] * 1e3:.3f} us, {fa[k]['bound_by']})"
+                    for k in (f"{FA_CHANNELS}x256", f"{FA_CORPUS}x256"))
+        + f" (median of 3 in turns, behind the spin) | {smi}")
+    return res
+
+
 def encode_phase(mf, sizes, enc_futs, smi) -> dict:
-    """[encode]: the encoder on the card == on the CPU (volumes and
+    """[encode]: K7 == the plain version on the card at every size, timed
+    (sad_kernel_check); the encoder on the card == on the CPU (volumes and
     bytes); its packets through the executor and the wavefront engine ==
-    oracle; the CLI's encode then decode; SadVolume's time."""
+    oracle; a 640x480 encode at the encoder's defaults on the card, its
+    packets through the executor == oracle, its seconds per frame; the
+    CLI's encode then decode.  K7's launches on each path, counted from 0:
+    one per SAD volume."""
+    from mobiclipdecoder_tpu_torch.models.encoder import MobiclipEncoder
     from mobiclipdecoder_tpu_torch.models.pipeline import (
         WavefrontVideoDecoder)
-    from mobiclipdecoder_tpu_torch.ops.mesearch import _sad8_volume
     from mobiclipdecoder_tpu_torch.ops.vmem_engine import VmemVideoDecoder
-    res = {}
+    res = {"launches": {}}
     with phase("encode"):
+        res["sad"] = sad_kernel_check(sizes, smi)
         for size in sizes:
             label = f"{size[0]}x{size[1]}"
+            zero_counts()
             pkts, vols, t_enc = encode_task(size, "cuda")
+            k7 = read_side_counts()[0]
             cpk, cvols, t_cpu = enc_futs[size].result()
             if pkts != cpk:
                 raise AssertionError(f"encode {label}: bytes on the card "
@@ -1391,6 +1625,11 @@ def encode_phase(mf, sizes, enc_futs, smi) -> dict:
                         a is not None and not np.array_equal(a, b)):
                     raise AssertionError(f"encode {label} frame {k}: SAD "
                                          f"volume differs from the CPU's")
+            nvol = sum(v is not None for v in vols)
+            if k7 != nvol:
+                raise AssertionError(f"encode {label}: {k7} K7 launches for "
+                                     f"{nvol} SAD volumes")
+            res["launches"][f"encode_{label}"] = k7
             exp = oracle_frames(mf, pkts, size)
             vd = VmemVideoDecoder(*size, mf, native=True, device="cuda")
             zero_counts()
@@ -1404,19 +1643,52 @@ def encode_phase(mf, sizes, enc_futs, smi) -> dict:
                 raise AssertionError(f"encode {label}: decoded packets differ "
                                      f"from the oracle (err {err}, launches "
                                      f"{k1_launches})")
-            nvol = sum(v is not None for v in vols)
             res[label] = {"bytes": [len(p) for p in pkts], "s_card": t_enc,
                           "s_cpu": t_cpu, "volumes": nvol}
             log(f"[encode] {label}: {len(pkts)} frames, "
                 f"{sum(map(len, pkts))} bytes, equal to the CPU encoder's "
-                f"with {nvol} equal SAD volumes; executor ({k1_launches} "
-                f"launches) and wavefront decode == oracle; encode "
-                f"{t_enc:.1f} s (card) vs {t_cpu:.1f} s (CPU, spawned) | "
-                f"{smi}")
+                f"with {nvol} equal SAD volumes (K7 launches {k7}); "
+                f"executor ({k1_launches} launches) and wavefront decode == "
+                f"oracle; encode {t_enc:.1f} s (card) vs {t_cpu:.1f} s "
+                f"(CPU, spawned) | {smi}")
+        # full width at the encoder's defaults (refs 5, me_range 16)
+        label = f"{ENC_WIDE[0]}x{ENC_WIDE[1]}"
+        enc = MobiclipEncoder(*ENC_WIDE, mf, device="cuda")
+        zero_counts()
+        t0 = time.perf_counter()
+        pkts = [enc.encode_frame(*f) + b"\x00\x00"
+                for f in encoder_frames(ENC_WIDE)]
+        t_wide = time.perf_counter() - t0
+        k7 = read_side_counts()[0]
+        exp = oracle_frames(mf, pkts, ENC_WIDE)
+        zero_counts()
+        yuv, offs, err = VmemVideoDecoder(
+            *ENC_WIDE, mf, native=True, device="cuda").decode_stream_chunk(
+                pkts)
+        k1_launches = sum(read_counts())
+        if (err is not None or k1_launches < 1 or k7 != len(pkts) - 1
+                or offs != [len(p) for p in pkts] or not (yuv == exp).all()):
+            raise AssertionError(f"encode {label} at the defaults: decoded "
+                                 f"packets differ from the oracle (err "
+                                 f"{err}, K1 launches {k1_launches}, K7 "
+                                 f"launches {k7})")
+        res["launches"][f"encode_{label}_defaults"] = k7
+        res[f"{label}_defaults"] = {
+            "frames": len(pkts), "bytes": [len(p) for p in pkts],
+            "refs": enc.max_refs, "me_range": enc.me_range,
+            "s_per_frame": t_wide / len(pkts)}
+        log(f"[encode] {label} at the encoder's defaults (refs "
+            f"{enc.max_refs}, me_range {enc.me_range}) on the card: "
+            f"{len(pkts)} frames, {sum(map(len, pkts))} bytes, "
+            f"{t_wide / len(pkts):.2f} s per "
+            f"frame; K7 launches {k7}; decoded by the executor "
+            f"({k1_launches} launches) == oracle | {smi}")
         with tempfile.TemporaryDirectory() as d:
             tmp = Path(d)
             write_y4m(tmp / "in.y4m", (W, H), ENC_FRAMES)
+            zero_counts()
             st = cli(["encode", str(tmp / "in.y4m"), str(tmp / "e.moflex")])
+            res["launches"]["cli_encode"] = read_side_counts()[0]
             zero_counts()
             cli(["decode", str(tmp / "e.moflex"), str(tmp / "cuda")])
             n = sum(read_counts())
@@ -1426,74 +1698,75 @@ def encode_phase(mf, sizes, enc_futs, smi) -> dict:
             if n < 1 or a != (tmp / "oracle.y4m").read_bytes():
                 raise AssertionError(f"encode CLI: decode --engine cuda "
                                      f"(launches {n}) differs from oracle")
-        rng = np.random.default_rng(3)
-        cur = torch.from_numpy(rng.integers(0, 256, (H, W)).astype(
-            np.int32)).cuda()
-        refs = torch.from_numpy(rng.integers(0, 256, (5, H, W)).astype(
-            np.int32)).cuda()
-        sad_ms = cuda_ms(lambda: _sad8_volume(cur, refs, 16))
         res["cli"] = {"frames": st["frames"], "bytes": st["bytes"],
                       "s": st["seconds"]}
-        res["sad_volume_ms_256x192_r16_R5"] = sad_ms
         log(f"[encode] CLI encode of a {ENC_FRAMES}-frame {W}x{H} .y4m "
-            f"({st['bytes']} bytes, {st['seconds']} s) then decode "
-            f"--engine cuda == --engine oracle; SadVolume 256x192 range 16 "
-            f"R=5: {sad_ms:.3f} ms (CUDA events, mean of 10) | {smi}")
+            f"({st['bytes']} bytes, {st['seconds']} s, K7 launches "
+            f"{res['launches']['cli_encode']}) then decode --engine cuda "
+            f"== --engine oracle | {smi}")
     return res
 
 
 def audio_phase(smi) -> dict:
-    """[audio]: the IMA scans and the FastAudio lattice on the card ==
-    the host decoders."""
+    """[audio]: K9 and K8 == their plain versions on the card, timed
+    (audio_kernel_check); decode_packets on the card (one K9 launch per
+    call) == the host ImaAdpcmDecoder on each of ima_cases;
+    FastAudioBatchDecoder on the card (one K8 launch per round) == the
+    host decoders over FA_PACKETS rounds of FA_CHANNELS channels, and ==
+    the plain version on the card fed the same rounds, state carried.  K8's
+    and K9's launches on each path, counted from 0."""
     from mobiclipdecoder_tpu_torch.models.audio_fastaudio import (
         FastAudioDecoder)
     from mobiclipdecoder_tpu_torch.models.audio_ima import ImaAdpcmDecoder
-    from mobiclipdecoder_tpu_torch.ops.adpcm import (decode_nibbles,
-                                                     decode_packets)
-    from mobiclipdecoder_tpu_torch.ops.audio_lpc import FastAudioBatchDecoder
-    res = {}
+    from mobiclipdecoder_tpu_torch.ops.adpcm import decode_packets
+    from mobiclipdecoder_tpu_torch.ops.audio_lpc import (
+        FastAudioBatchDecoder, fastaudio_synth_plain)
     with phase("audio"):
-        rng = np.random.default_rng(21)
-        body = rng.integers(0, 256, (IMA_CHANNELS, IMA_SAMPLES // 2),
-                            dtype=np.uint8)
-        idx0 = rng.integers(0, 89, IMA_CHANNELS).astype(np.int32)
-        last0 = rng.integers(-32768, 32768, IMA_CHANNELS).astype(np.int32)
-        t0 = time.perf_counter()
-        got = decode_packets(body, idx0, last0, device="cuda")
-        t_call = (time.perf_counter() - t0) * 1e3
-        t0 = time.perf_counter()
-        for c in range(IMA_CHANNELS):
-            dec = ImaAdpcmDecoder()
-            dec.is_init = True
-            dec.index, dec.last = int(idx0[c]), int(last0[c])
-            raw = body[c].tobytes()
-            want = np.concatenate([dec.decode(raw, o, 128)
-                                   for o in range(0, len(raw), 128)])
-            if not np.array_equal(got[c], want):
-                raise AssertionError(f"IMA channel {c} differs from the host "
-                                     f"decoder")
-        t_host = (time.perf_counter() - t0) * 1e3
-        b = torch.from_numpy(body.astype(np.int32)).cuda()
-        nib = torch.stack([b & 0xF, b >> 4], dim=-1).reshape(
-            IMA_CHANNELS, IMA_SAMPLES)
-        i0, l0 = (torch.from_numpy(x).cuda() for x in (idx0, last0))
-        ima_ms = cuda_ms(lambda: decode_nibbles(nib, i0, l0))
-        res["ima"] = {"shape": f"{IMA_CHANNELS}x{IMA_SAMPLES}",
-                      "ms": ima_ms, "call_ms": t_call, "host_ms": t_host}
+        res = audio_kernel_check(smi)
+        calls, t_host = {}, 0.0
+        zero_counts()
+        for label, body, idx0, last0 in ima_cases():
+            t0 = time.perf_counter()
+            got = decode_packets(body, idx0, last0, device="cuda")
+            calls[label] = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            for c in range(IMA_CHANNELS):
+                dec = ImaAdpcmDecoder()
+                dec.is_init = True
+                dec.index, dec.last = int(idx0[c]), int(last0[c])
+                raw = body[c].tobytes()
+                want = np.concatenate([dec.decode(raw, o, 128)
+                                       for o in range(0, len(raw), 128)])
+                if not np.array_equal(got[c], want):
+                    raise AssertionError(f"IMA {label} channel {c} differs "
+                                         f"from the host decoder")
+            t_host += time.perf_counter() - t0
+        ima_launches = read_side_counts()[2]
+        if ima_launches != len(calls):
+            raise AssertionError(f"IMA: {ima_launches} K9 launches for "
+                                 f"{len(calls)} decode_packets calls")
+        res["ima"].update(call_ms=calls, host_s=t_host,
+                          launches={"audio_decode_packets": ima_launches})
         log(f"[audio] IMA decode_packets on the card, {IMA_CHANNELS} "
-            f"channels x {IMA_SAMPLES} samples (128-byte packets) == host "
-            f"ImaAdpcmDecoder; scans {ima_ms:.3f} ms (CUDA events, mean of "
-            f"10), whole call {t_call:.1f} ms, host decoder {t_host:.0f} ms "
-            f"| {smi}")
+            f"channels x {IMA_SAMPLES} samples (128-byte packets), "
+            f"{len(calls)} cases ({', '.join(calls)}) == host "
+            f"ImaAdpcmDecoder; K9 launches {ima_launches}; whole call "
+            + ", ".join(f"{v:.1f}" for v in calls.values())
+            + f" ms; host decoder {t_host:.1f} s for all | {smi}")
+        rng = np.random.default_rng(21)
         pk = rng.integers(0, 256, (FA_PACKETS, FA_CHANNELS, 40),
                           dtype=np.uint8)
         fa = FastAudioBatchDecoder(FA_CHANNELS, device="cuda")
         hosts = [FastAudioDecoder() for _ in range(FA_CHANNELS)]
+        decs = [FastAudioDecoder() for _ in range(FA_CHANNELS)]
+        plain_state = (torch.zeros_like(fa.hist), torch.zeros_like(fa.r9))
         e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        t_dev = 0.0
-        ms = 0.0
+        t_dev = ms = 0.0
+        err = 0
+        fa_launches = 0
         for k in range(FA_PACKETS):
             pkts = [pk[k, c].tobytes() for c in range(FA_CHANNELS)]
+            zero_counts()
             t0 = time.perf_counter()
             e0.record()
             got = fa.decode(pkts)
@@ -1501,19 +1774,38 @@ def audio_phase(smi) -> dict:
             torch.cuda.synchronize()
             t_dev += time.perf_counter() - t0
             ms += e0.elapsed_time(e1)
+            fa_launches += read_side_counts()[1]
             for c, h in enumerate(hosts):
                 h.data = pkts[c]
                 h.offset = 0
                 if not np.array_equal(got[c], h.decode()):
                     raise AssertionError(f"FastAudio packet {k} channel {c} "
                                          f"differs from the host decoder")
-        res["fastaudio"] = {"shape": f"{FA_CHANNELS}x{FA_PACKETS}",
-                            "ms_per_round": ms / FA_PACKETS,
-                            "wall_ms_per_round": t_dev * 1e3 / FA_PACKETS}
+            ex, cf = (torch.from_numpy(a).cuda() for a in fa_round(decs,
+                                                                   pkts))
+            pcm_p, *plain_state = fastaudio_synth_plain(ex, cf, *plain_state)
+            err = max(err, int(np.abs(got.astype(np.int32) - pcm_p.cpu(
+                ).numpy().astype(np.int32)).max()),
+                      max_err(fa.hist, plain_state[0]),
+                      max_err(fa.r9, plain_state[1]))
+        if err != 0 or fa_launches != FA_PACKETS:
+            raise AssertionError(f"FastAudio: K8 against the plain version "
+                                 f"on the card, max abs err {err}; "
+                                 f"{fa_launches} K8 launches for "
+                                 f"{FA_PACKETS} rounds")
+        res["fastaudio"]["max_abs_err"] = max(res["fastaudio"]["max_abs_err"],
+                                              err)
+        res["fastaudio"].update(
+            batch_decoder={"shape": f"{FA_CHANNELS}x{FA_PACKETS}",
+                           "ms_per_round": ms / FA_PACKETS,
+                           "wall_ms_per_round": t_dev * 1e3 / FA_PACKETS},
+            launches={"audio_fastaudio_batch": fa_launches})
         log(f"[audio] FastAudioBatchDecoder on the card, {FA_CHANNELS} "
-            f"channels x {FA_PACKETS} packets == host FastAudioDecoders; "
-            f"{ms / FA_PACKETS:.2f} ms per round of 256 samples (CUDA "
-            f"events), {t_dev * 1e3 / FA_PACKETS:.2f} ms wall | {smi}")
+            f"channels x {FA_PACKETS} packets == host FastAudioDecoders and "
+            f"== the plain version on the card round by round (state "
+            f"carried); K8 launches {fa_launches}; {ms / FA_PACKETS:.3f} ms "
+            f"per round of 256 samples (CUDA events around decode), "
+            f"{t_dev * 1e3 / FA_PACKETS:.3f} ms wall | {smi}")
     return res
 
 
@@ -2065,7 +2357,9 @@ def main(argv=None) -> int:
               "false); there is no CPU path", file=sys.stderr)
         return 1
     from mobiclipdecoder_tpu_torch.models.oracle_video import MobiclipVersion
-    from mobiclipdecoder_tpu_torch.ops import (executor, prologue_kernels,
+    from mobiclipdecoder_tpu_torch.ops import (audio_kernels, executor,
+                                               mesearch_kernels,
+                                               prologue_kernels,
                                                wavefront_kernels)
     from mobiclipdecoder_tpu_torch.ops.vmem_engine import (VmemBatchDecoder,
                                                            VmemVideoDecoder)
@@ -2096,12 +2390,13 @@ def main(argv=None) -> int:
     # 2. build: one nvcc per kernel source, started together
     t0 = time.perf_counter()
     loaders = (executor._load, prologue_kernels._load,
-               wavefront_kernels._load)
+               wavefront_kernels._load, mesearch_kernels._load,
+               audio_kernels._load)
     with _cf.ThreadPoolExecutor(len(loaders)) as tp:
         for fut in [tp.submit(load) for load in loaders]:
             fut.result()
     t_load = time.perf_counter() - t0
-    for lib in ("gop_executor", "prologue", "wavefront"):
+    for lib in ("gop_executor", "prologue", "wavefront", "sad", "audio"):
         built = build.build_seconds.get(lib)
         log(f"[build] {lib}.cu: "
             + (f"nvcc {built:.2f} s" if built is not None
@@ -2141,6 +2436,8 @@ def main(argv=None) -> int:
                 kernel_vs_plain(version, synth_gops(version, [9], 1, 1,
                                                     size)[0],
                                 f"F=1 {size[0]}x{size[1]}", 6, size)
+            sad_kernel_check(((W, H),) + WIDE, smi)
+            audio_kernel_check(smi)
         log(f"[total] {time.perf_counter() - t_start:.1f} s; --kernel-only: "
             f"no result line")
         return 0
@@ -2572,6 +2869,54 @@ def main(argv=None) -> int:
                                               "bound_ms", "bound_by",
                                               "bytes", "levels")}
                         for g, v in wk6.items()}})
+    # K7, K8, K9: no single PyTorch call computes the SAD volume, the
+    # FastAudio lattice or the IMA chains (library_ms null); times and
+    # bounds from [encode] at the main geometry and from [audio]
+    sad = encoded["sad"]
+    sad_main = sad[f"{W}x{H}"]
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "bytes",
+            "sad_volume_call_ms")
+    kernels.append({
+        "name": "sad8_volume", "route": "cuda",
+        "source": "mobiclipdecoder_tpu_torch/csrc/sad.cu",
+        "replaces": "mobiclipdecoder_tpu/ops/mesearch.py:28-48 (XLA: "
+                    "_sad8_volume)",
+        "launches": sum(encoded["launches"].values()),
+        "launches_by_path": encoded["launches"],
+        "max_abs_err": max(v["max_abs_err"] for v in sad.values()),
+        **{k: sad_main[k] for k in keys}, "library_ms": None,
+        "plain_on": "card", "plain": "_sad8_volume_plain",
+        "shape": f"{W}x{H} range {SAD_RANGE} R={SAD_REFS}",
+        "by_geometry": {g: {k: v[k] for k in keys} for g, v in sad.items()}})
+    fa = audio["fastaudio"]
+    fa_main = fa[f"{FA_CHANNELS}x256"]
+    kernels.append({
+        "name": "fastaudio_synth", "route": "cuda",
+        "source": "mobiclipdecoder_tpu_torch/csrc/audio.cu",
+        "replaces": "mobiclipdecoder_tpu/ops/audio_lpc.py:43 (XLA: "
+                    "fastaudio_synth, _synth_jit :68)",
+        "launches": sum(fa["launches"].values()),
+        "launches_by_path": fa["launches"], "max_abs_err": fa["max_abs_err"],
+        **{k: fa_main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                   "serial_steps")},
+        "library_ms": None, "plain_on": "card",
+        "plain": "fastaudio_synth_plain",
+        "shape": f"{FA_CHANNELS} channels x 256 samples, one round",
+        "corpus": {k: fa[f"{FA_CORPUS}x256"][k]
+                   for k in ("ms", "plain_ms", "bound_ms")},
+        "batch_decoder": fa["batch_decoder"]})
+    ima = audio["ima"]
+    kernels.append({
+        "name": "ima_scan", "route": "cuda",
+        "source": "mobiclipdecoder_tpu_torch/csrc/audio.cu",
+        "replaces": "mobiclipdecoder_tpu/ops/adpcm.py:47-73 (XLA: "
+                    "decode_nibbles)",
+        "launches": sum(ima["launches"].values()),
+        "launches_by_path": ima["launches"], "max_abs_err": ima["max_abs_err"],
+        **{k: ima[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": None, "plain_on": "card",
+        "plain": "decode_nibbles_plain", "shape": ima["shape"],
+        "cases": list(ima["cases"])})
     for kern in kernels:
         if min(kern["launches_by_path"].values()) < 1:
             raise AssertionError(f"{kern['name']} {kern.get('geometry')}: "

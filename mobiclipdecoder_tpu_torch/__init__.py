@@ -1,9 +1,16 @@
 """mobiclipdecoder_tpu_torch: the Mobiclip decoder's whole-GOP decode path
-ported to PyTorch, with its executor, its device prologue and the
-wavefront engine as hand-written CUDA kernels for NVIDIA Hopper (sm_90a),
-at DS 256x192, 3DS 400x240 and Wii 640x480; and the rest of the JAX
-package's device code (the encoder's SAD volume, the batched audio ops) as
-plain torch on the card.
+ported to PyTorch, with its executor, its device prologue, the wavefront
+engine, the encoder's SAD volume and the batched audio ops as hand-written
+CUDA kernels for NVIDIA Hopper (sm_90a), at DS 256x192, 3DS 400x240 and
+Wii 640x480.  On CPU tensors each kernel's wrapper takes its plain torch
+version instead.
+
+Kernels (csrc/, built with nvcc at first use, bound with ctypes):
+  K1/K2 gop_executor.cu   the whole-GOP executor, F frames or one
+  K4, K5 prologue.cu      the IDCT pre-pass of dense rows; the blob prologue
+  K6 wavefront.cu         the wavefront engine's frame round
+  K7 sad.cu               the encoder's full-search SAD volume
+  K8, K9 audio.cu         the FastAudio lattice; the IMA ADPCM scans
 
 The JAX package ``mobiclipdecoder_tpu`` is the reference this port is held
 against; the port imports nothing of it.  The codec's host modules (oracle
@@ -47,9 +54,14 @@ Layers, from the entry point down:
   parallel/batch.py    BatchVideoDecoder: B streams on the wavefront engine,
                        on one device or split over several
   models/encoder.py    MobiclipEncoder (host), whose motion search takes
-                       its full-search SAD volume from ops/mesearch.py
-  ops/adpcm.py         IMA ADPCM as two log-step scans (batched torch)
-  ops/audio_lpc.py     FastAudioBatchDecoder: the LPC lattice over channels
+                       its full-search SAD volume from ops/mesearch.py:
+                       on the card one launch of K7
+                       (ops/mesearch_kernels.py, csrc/sad.cu)
+  ops/adpcm.py         IMA ADPCM as two scans of clamped-add maps: on the
+                       card one launch of K9 (ops/audio_kernels.py,
+                       csrc/audio.cu), on the CPU two log-step scans
+  ops/audio_lpc.py     FastAudioBatchDecoder: the LPC lattice over channels,
+                       on the card one launch of K8 per round
   utils/device.py      the device check every entry point makes (a bare
                        "cuda" resolved to the current device's index)
 """

@@ -1,4 +1,4 @@
-"""IMA ADPCM as two inclusive scans of clamped-add maps (plain torch).
+"""IMA ADPCM as two inclusive scans of clamped-add maps.
 
 Port of ``mobiclipdecoder_tpu/ops/adpcm.py``.  The sample-sequential IMA
 recurrence (models/audio_ima.py) looks serial, but both state variables
@@ -18,7 +18,10 @@ O(log n) steps:
            32767]); the inclusive scan yields the output samples.
 
 Composition is associative, so any scan order gives the JAX package's
-results exactly.  All arithmetic is int32.
+results exactly.  All arithmetic is int32.  On CUDA tensors
+``decode_nibbles`` is one launch of K9 (``ops/audio_kernels.py``,
+csrc/audio.cu), a block per row; on CPU tensors it is the plain torch
+``decode_nibbles_plain``.
 """
 from __future__ import annotations
 
@@ -27,6 +30,7 @@ import torch
 
 from ..models.audio_ima import INDEX_TABLE, STEP_TABLE
 from ..utils.device import check_device
+from . import audio_kernels
 
 
 def _compose(f, g):
@@ -58,7 +62,21 @@ def decode_nibbles(nibbles: torch.Tensor, index0: torch.Tensor,
     """Decode a (..., N) int32 nibble tensor given initial (index, last) of
     shape (...).  Returns int32 samples of the same shape, on the nibbles'
     device.  Vectorizes over any leading batch axes (channels, packets,
-    streams)."""
+    streams).
+
+    On CUDA tensors one launch of K9, which takes contiguous tensors or
+    raises; on CPU tensors the plain version; any other device raises."""
+    if nibbles.device.type == "cpu":
+        return decode_nibbles_plain(nibbles, index0, last0)
+    if nibbles.device.type != "cuda":
+        raise ValueError(f"no IMA scans for device {nibbles.device}")
+    return audio_kernels.ima_scan(nibbles, index0, last0)
+
+
+def decode_nibbles_plain(nibbles: torch.Tensor, index0: torch.Tensor,
+                         last0: torch.Tensor) -> torch.Tensor:
+    """``decode_nibbles`` in plain torch, on whatever device its inputs lie
+    on: the two log-step scans."""
     dev = nibbles.device
     idx_t = torch.from_numpy(INDEX_TABLE.astype(np.int32)).to(dev)
     step_t = torch.from_numpy(STEP_TABLE.astype(np.int32)).to(dev)

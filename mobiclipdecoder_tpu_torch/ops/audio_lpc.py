@@ -1,4 +1,4 @@
-"""Batched LPC audio synthesis (the FastAudio lattice, plain torch).
+"""Batched LPC audio synthesis (the FastAudio lattice).
 
 Port of ``mobiclipdecoder_tpu/ops/audio_lpc.py``.  The FastAudio codec
 (models/audio_fastaudio.py, mirror of FastAudioDecoder.cs:41-72) splits at
@@ -7,7 +7,9 @@ the same seam as video: packet unpacking (bitstream work, host) vs the
 channel's filter is a scalar recurrence, but a transcode job carries
 CHANNELS x STREAMS independent recurrences, so the device form is a loop
 over the 256 samples of a packet with every channel in the batch advancing
-one sample per step.
+one sample per step.  On CUDA tensors ``fastaudio_synth`` is one launch of
+K8 (``ops/audio_kernels.py``, csrc/audio.cu), a thread per channel; on CPU
+tensors it is the plain torch ``fastaudio_synth_plain``.
 
 Bit-exactness: the reference computes ``(coef * hist + 0x4000) >> 15`` in
 unbounded precision.  With |coef| < 2**15 and an int32 history the exact
@@ -21,6 +23,7 @@ import numpy as np
 import torch
 
 from ..utils.device import check_device
+from . import audio_kernels
 
 _DEEMPH = 0x6E14  # fixed de-emphasis coefficient (FastAudioDecoder.cs:66)
 
@@ -37,7 +40,20 @@ def fastaudio_synth(excit, coef, hist0, r9_0):
     excit: (B, N) int32 pulse excitation; coef: (B, 8) int32 LPC
     coefficients; hist0: (B, 8) int32 filter history (hist[j] =
     Internal[107-j]); r9_0: (B,) int32 de-emphasis state, all on one
-    device.  Returns (pcm (B, N) int16, hist, r9)."""
+    device.  Returns (pcm (B, N) int16, hist, r9).
+
+    On CUDA tensors one launch of K8, which takes contiguous tensors or
+    raises; on CPU tensors the plain version; any other device raises."""
+    if excit.device.type == "cpu":
+        return fastaudio_synth_plain(excit, coef, hist0, r9_0)
+    if excit.device.type != "cuda":
+        raise ValueError(f"no FastAudio lattice for device {excit.device}")
+    return audio_kernels.fastaudio_synth(excit, coef, hist0, r9_0)
+
+
+def fastaudio_synth_plain(excit, coef, hist0, r9_0):
+    """``fastaudio_synth`` in plain torch, on whatever device its inputs
+    lie on: a loop over the samples, every channel one step at a time."""
     hist = list(hist0.unbind(1))
     cf = list(coef.to(torch.int64).unbind(1))       # cast once, not per use
     r9 = r9_0
@@ -61,7 +77,7 @@ class FastAudioBatchDecoder:
     ``device`` (required; a CUDA device that is not there raises).
 
     The host unpacks each channel's packet (FastAudioDecoder.excitation);
-    the lattice runs as one batched loop over all channels.  Bit-exact
+    the lattice runs as one batched call over all channels.  Bit-exact
     with the per-channel host decoders."""
 
     def __init__(self, channels: int, *, device):

@@ -1,4 +1,4 @@
-"""Full-search SAD volume for the encoder's motion search (plain torch).
+"""Full-search SAD volume for the encoder's motion search.
 
 Port of ``mobiclipdecoder_tpu/ops/mesearch.py``.  The reference analyzer
 runs a log/diamond descent per block per reference frame on the CPU
@@ -11,7 +11,9 @@ rate-distortion pass reduces to an argmin plus a 3x3 half-pel refinement.
 
 The volume is exact integer SAD; out-of-frame candidates read the
 zero-padded reference and must be masked by the caller's legality window
-(encoder._mv_range does).
+(encoder._mv_range does).  On CUDA tensors ``_sad8_volume`` is one launch
+of K7 (``ops/mesearch_kernels.py``, csrc/sad.cu); on CPU tensors it is the
+plain torch ``_sad8_volume_plain``.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import numpy as np
 import torch
 
 from ..utils.device import check_device
+from . import mesearch_kernels
 
 
 def _sad8_volume(cur: torch.Tensor, refs: torch.Tensor,
@@ -28,7 +31,19 @@ def _sad8_volume(cur: torch.Tensor, refs: torch.Tensor,
     of cur's 8x8 tile (by, bx) against ref r shifted by full-pel
     (dy, dx) = (k // (2*range_+1) - range_, k % (2*range_+1) - range_).
 
-    One chunk per vertical offset: the 2*range_+1 horizontal offsets of a
+    On CUDA tensors one launch of K7, which takes contiguous tensors or
+    raises; on CPU tensors the plain version; any other device raises."""
+    if cur.device.type == "cpu":
+        return _sad8_volume_plain(cur, refs, range_)
+    if cur.device.type != "cuda":
+        raise ValueError(f"no SAD volume for device {cur.device}")
+    return mesearch_kernels.sad_volume(cur, refs, range_)
+
+
+def _sad8_volume_plain(cur: torch.Tensor, refs: torch.Tensor,
+                       range_: int = 16) -> torch.Tensor:
+    """``_sad8_volume`` in plain torch, on whatever device its inputs lie
+    on: one chunk per vertical offset: the 2*range_+1 horizontal offsets of a
     row are unfolded views of the padded references, differenced and
     tile-summed together."""
     H, W = cur.shape

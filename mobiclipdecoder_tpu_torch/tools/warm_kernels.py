@@ -6,8 +6,10 @@ launches before serving: the port of the repository's
     python -m mobiclipdecoder_tpu_torch.tools.warm_kernels 256x192 --batch 8 --frames 24 --device cuda
 
 Builds the executor kernel (``csrc/gop_executor.cu``), the prologue
-kernels (``csrc/prologue.cu``) and the wavefront engine's kernel
-(``csrc/wavefront.cu``) with nvcc, on a CUDA device only, and the
+kernels (``csrc/prologue.cu``), the wavefront engine's kernel
+(``csrc/wavefront.cu``), the encoder's SAD-volume kernel (``csrc/sad.cu``)
+and the audio kernels (``csrc/audio.cu``) with nvcc, on a CUDA device
+only, and the
 C++ scanner (``native/scanner.cpp``, g++) into the git-ignored
 ``mobiclipdecoder_tpu_torch/csrc/build/``, then decodes, per
 geometry, one synthesized GOP through ``VmemBatchDecoder`` (one whole-GOP
@@ -23,7 +25,8 @@ import sys
 import time
 
 from ..models.oracle_video import MobiclipVersion
-from ..ops import executor, prologue_kernels, wavefront_kernels
+from ..ops import (audio_kernels, executor, mesearch_kernels,
+                   prologue_kernels, wavefront_kernels)
 from ..ops.vmem_engine import VmemBatchDecoder
 from ..testing.synth import StreamSynthesizer
 from ..utils import build, native
@@ -32,7 +35,8 @@ from ..utils.device import check_device
 
 def warm_builds(device) -> dict:
     """Load the scanner and, on a CUDA device, the executor, the prologue
-    kernels and K6, compiling each one that is missing or stale;
+    kernels, K6, K7 and the audio kernels (K8, K9), compiling each one
+    that is missing or stale;
     returns per library the seconds this took and the seconds of its
     compile in this process (None when it was already built)."""
     loaders = {"mobiscan": native._load}
@@ -40,6 +44,8 @@ def warm_builds(device) -> dict:
         loaders["gop_executor"] = executor._load
         loaders["prologue"] = prologue_kernels._load
         loaders["wavefront"] = wavefront_kernels._load
+        loaders["sad"] = mesearch_kernels._load
+        loaders["audio"] = audio_kernels._load
     out = {}
     for name, load in loaders.items():
         t0 = time.perf_counter()

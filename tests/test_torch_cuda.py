@@ -1,11 +1,12 @@
 """Tests of the port that need an NVIDIA GPU: the hand-written CUDA
-executor, prologue and wavefront kernels against their plain PyTorch
-versions, and
+executor, prologue, wavefront, SAD-volume and audio kernels against their
+plain PyTorch versions, and
 the decoder on the card against the decoder on the CPU.  They skip where no
 CUDA device is present (the kernels have no CPU mode; their per-op and
 per-row code is checked on the CPU through the host builds in
-test_torch_executor.py, test_torch_prologue_kernel.py and
-test_torch_wavefront_kernel.py).  This file imports no
+test_torch_executor.py, test_torch_prologue_kernel.py,
+test_torch_wavefront_kernel.py, test_torch_sad_kernel.py and
+test_torch_audio_kernel.py).  This file imports no
 JAX and nothing of the JAX package, so it runs on a machine without it:
 
     python -m pytest tests/test_torch_cuda.py -q
@@ -194,12 +195,18 @@ def test_cuda_wavefront_batch_matches_cpu(cuda):
 
 @pytest.mark.cuda
 def test_cuda_sad_volume_and_audio_match_cpu(cuda):
+    """The SAD volume (K7), the IMA scans (K9) and the FastAudio lattice
+    (K8) on the card == their plain versions on the CPU, each call a launch
+    of its kernel."""
+    from mobiclipdecoder_tpu_torch.ops import audio_kernels, mesearch_kernels
     from mobiclipdecoder_tpu_torch.ops.adpcm import decode_packets
     from mobiclipdecoder_tpu_torch.ops.audio_lpc import fastaudio_synth
     from mobiclipdecoder_tpu_torch.ops.mesearch import SadVolume
     rng = np.random.default_rng(4)
     cur = rng.integers(0, 256, (H, W)).astype(np.uint8)
     refs = [rng.integers(0, 256, (H, W)).astype(np.uint8) for _ in range(3)]
+    before = (mesearch_kernels.sad_launches, audio_kernels.ima_launches,
+              audio_kernels.fastaudio_launches)
     np.testing.assert_array_equal(
         SadVolume(cur, refs, range_=8, device=cuda).vol,
         SadVolume(cur, refs, range_=8, device="cpu").vol)
@@ -217,6 +224,8 @@ def test_cuda_sad_volume_and_audio_match_cpu(cuda):
     for a, b in zip(fastaudio_synth(*(a.to(cuda) for a in args)),
                     fastaudio_synth(*args)):
         np.testing.assert_array_equal(a.cpu().numpy(), b.numpy())
+    assert (mesearch_kernels.sad_launches, audio_kernels.ima_launches,
+            audio_kernels.fastaudio_launches) == tuple(n + 1 for n in before)
 
 
 @pytest.mark.cuda
