@@ -36,17 +36,20 @@ Then it covers the other geometries and the user's entry points:
   [batch]      the corpus worker over 8 MODS files of 2 GOPs each, 8
                streams per launch: every shard equals the oracle worker's;
   [wavefront]  the wavefront engine (the JAX package's tpu-xla; on the
-               card K6, csrc/wavefront.cu, one launch per frame round):
+               card K6, csrc/wavefront.cu, one launch per GOP and shard):
                K6 == its plain version on the card frame round by frame
                round for GOP 0 of the main path and a 640x480 I-frame,
-               both timed per GOP in turns, with K6's bound;
+               both timed per GOP in turns, with K6's bound, its phase
+               split (I-frame and P rounds alone, no levels, levels
+               only) and the sweep of its cluster size C = 1, 2, 4, 8;
                BatchVideoDecoder.decode_gop over the main path's 8 streams
-               x 2 GOPs == the oracle and the executor's frames;
-               WavefrontVideoDecoder at 400x240 and 640x480 == oracle;
+               x 2 GOPs == the oracle and the executor's frames, one K6
+               launch per GOP; WavefrontVideoDecoder at 400x240 and
+               640x480 == oracle, one launch per frame;
                `decode --engine wavefront` of the three [transcode]
                containers == `--engine oracle` bytes; K6 launches per path,
-               ms per GOP, frames/s, intra levels and device launches per
-               I-frame and P-frame round (within 4 of each other);
+               ms and wall per GOP, frames/s, intra levels per round and
+               device activities per GOP (at most 4);
   [encode]     K7 (csrc/sad.cu, the SAD volume) == its plain version on
                the card, exact int32, at all three sizes with the encoder's
                defaults (range 16, 5 references of encoder_frames, the
@@ -1108,24 +1111,19 @@ def device_launches(fn) -> tuple[int | None, str]:
     return (n, "") if n else (None, "the profiler saw no device activity")
 
 
-def round_activities_task(rounds) -> tuple:
+def gop_activities_task(gop) -> tuple:
     """In a spawned process, where no profiler session ran before: the
-    device activities of a BatchVideoDecoder's first
-    frame round (an I-frame) and of the 3 frame rounds after it, DS
-    256x192, rounds[f][b] the packets; after one warm round on another
-    decoder (builds loaded, K6's tables uploaded).  (I count, why, P count
-    for 3 rounds, why)."""
+    device activities of a BatchVideoDecoder's decode_gop of one DS
+    256x192 GOP (gop[f][b] the packets), after one warm GOP on another
+    decoder (builds loaded, K6's tables uploaded).  (count, why not)."""
     from mobiclipdecoder_tpu_torch.models.oracle_video import MobiclipVersion
     from mobiclipdecoder_tpu_torch.parallel.batch import BatchVideoDecoder
     ds = MobiclipVersion.MODS_DS
-    nb = len(rounds[0])
+    nb = len(gop[0])
     BatchVideoDecoder(W, H, ds, batch=nb, native=True,
-                      device="cuda").decode_frames(rounds[0])
+                      device="cuda").decode_gop(gop)
     pd = BatchVideoDecoder(W, H, ds, batch=nb, native=True, device="cuda")
-    l_i, why = device_launches(lambda: pd.decode_frames(rounds[0]))
-    l_p, why_p = device_launches(
-        lambda: [pd.decode_frames(fp) for fp in rounds[1:4]])
-    return l_i, why, l_p, why_p
+    return device_launches(lambda: pd.decode_gop(gop))
 
 
 def write_y4m(path: Path, size, n: int) -> None:
@@ -1142,7 +1140,8 @@ def wavefront_work(rounds: list[dict], h: int, S: int) -> dict:
     once (the MC, residual and intra rows in use, each stream's sequence
     map and level count, the ring samples its MC leaves need: the block
     plus a row and a column where the half-pel case reads them) and each
-    output written once (each stream's frame).  ``ops``: the pixels the
+    output written once (each stream's frame into its ring slot, int32,
+    and into the uint8 frames).  ``ops``: the pixels the
     rows write, one operation each at least.  ``bound_ms`` is the larger of
     bytes over the memory rate and ops over the 32-bit rate.  ``levels``:
     each round's serial depth, the deepest stream's intra levels."""
@@ -1164,9 +1163,11 @@ def wavefront_work(rounds: list[dict], h: int, S: int) -> dict:
         isize = r["iops"][..., 3].astype(np.int64)
         ilive = (isize > 0) & (np.arange(r["iops"].shape[1])[None, :, None]
                                < nl[:, None, None])
-        nbytes += 4 * (7 * int(live.sum()) + int(samples.sum())
-                       + 68 * int((rsize > 0).sum()) + 75 * int(ilive.sum())
-                       + r["seqmap"].size + nb + nb * (h + h // 2) * S)
+        nbytes += (4 * (7 * int(live.sum()) + int(samples.sum())
+                        + 68 * int((rsize > 0).sum())
+                        + 75 * int(ilive.sum()) + r["seqmap"].size + nb
+                        + nb * (h + h // 2) * S)
+                   + nb * (h + h // 2) * S)
         nops += (int(np.where(live, w * hh + 2 * cw * ch, 0).sum())
                  + int(np.where(rsize > 0, rsize ** 2, 0).sum())
                  + int(np.where(ilive, isize ** 2, 0).sum()))
@@ -1178,61 +1179,125 @@ def wavefront_work(rounds: list[dict], h: int, S: int) -> dict:
             "levels": levels}
 
 
+def wavefront_variants(rounds: list[dict]) -> dict[str, list[dict]]:
+    """The inputs of K6's phase split, from a GOP's frame rounds
+    (scan_packets() host arrays): the GOP; its I-frame round and its
+    P-frame rounds alone (for a GOP of several rounds); every round with
+    n_levels 0 (the zero fill, MC and the residuals left); every round
+    with its MC and residual rows of size 0 (the intra levels left)."""
+    def no_levels(r):
+        return dict(r, n_levels=np.zeros_like(r["n_levels"]))
+
+    def levels_only(r):
+        mc, resid = r["mc"].copy(), r["resid"].copy()
+        mc[..., 2] = 0
+        resid[..., 3] = 0
+        return dict(r, mc=mc, resid=resid)
+
+    out = {"gop": rounds}
+    if len(rounds) > 1:
+        out.update(iframe=rounds[:1], pframes=rounds[1:])
+    out.update(no_levels=[no_levels(r) for r in rounds],
+               levels_only=[levels_only(r) for r in rounds])
+    return out
+
+
+def wavefront_split(run, rounds: list[dict], device, reps: int = 5) -> dict:
+    """ms of ``run(plans)`` on the GopPlans of each of
+    wavefront_variants(rounds), timed in turns behind the spin (median of
+    ``reps``)."""
+    from mobiclipdecoder_tpu_torch.ops.wavefront_kernels import upload_gop
+    ups = {k: upload_gop(v, device)
+           for k, v in wavefront_variants(rounds).items()}
+    return timed_turns({k: (lambda u=u: run(u)) for k, u in ups.items()},
+                       reps=reps, warm=1)
+
+
+CLUSTER_SWEEP = (1, 2, 4, 8)
+
+
 def wavefront_kernel_check(ds, mf, main_gop, wide_gop, smi) -> dict:
-    """K6 == the plain version on the card, exact int32, frame round by
-    frame round with K6's frames carried in the ring, for GOP 0 of the main
-    path (DS B=8 F=24) and a Moflex 640x480 I-frame (B=1, ``wide_gop``
-    [[packet]]); then the GOP through K6 and through the plain version,
-    timed in turns (median of 3 CUDA-event times, each call behind the
-    spin), beside K6's bound."""
+    """K6 == the plain version on the card, exact int32, for GOP 0 of the
+    main path (DS B=8 F=24) and a Moflex 640x480 I-frame (B=1, ``wide_gop``
+    [[packet]]): one K6 launch from a random ring at head 2, its frames
+    round by round (int32 and uint8) and its final ring against
+    decode_frame_core_plain's rounds; then K6 (one launch per GOP) and the
+    plain round loop (decode_gop_plain) timed in turns (median of 3
+    CUDA-event times, each call behind the spin), beside K6's bound; K6's
+    phase split (wavefront_split) and the cluster sweep (C over
+    CLUSTER_SWEEP, in turns, median of 5)."""
     from mobiclipdecoder_tpu_torch.models.pipeline import (
-        decode_frame_core, decode_frame_core_plain)
-    from mobiclipdecoder_tpu_torch.parallel.batch import (BatchVideoDecoder,
-                                                          upload_rounds)
+        decode_frame_core_plain, decode_gop_plain)
+    from mobiclipdecoder_tpu_torch.ops import wavefront_kernels as wk
+    from mobiclipdecoder_tpu_torch.parallel.batch import BatchVideoDecoder
     res = {}
+    cluster = wk.CLUSTER
     for version, size, gop in ((ds, (W, H), main_gop),
                                (mf, WIDE[1], wide_gop)):
         label = f"{size[0]}x{size[1]}"
         bd = BatchVideoDecoder(*size, version, batch=len(gop[0]), native=True,
                                device="cuda")
         rounds = [bd.scan_packets(fp) for fp in gop]
-        ups = upload_rounds(rounds, bd.device)
+        plans = wk.upload_gop(rounds, bd.device)
         h, S = size[1], bd.stride
-
-        def run(fn, check=False):
-            ring = torch.zeros_like(bd.rings[0])
-            err = 0
-            for t in ups:
-                ring = torch.roll(ring, 1, dims=1)
-                args = (ring, t["mc"], t["resid"], t["resid_coef"],
-                        t["iops"], t["icoef"], t["seqmap"], t["n_levels"],
-                        h, S)
-                buf = fn(*args)
-                if check:
-                    err = max(err, max_err(buf, decode_frame_core_plain(
-                        *args)))
-                ring[:, 0] = buf
-            return err
+        ring0 = torch.from_numpy(np.random.default_rng(12).integers(
+            0, 256, tuple(bd.rings[0].shape)).astype(np.int32)).cuda()
 
         zero_counts()
-        err = run(decode_frame_core, check=True)
-        torch.cuda.synchronize()
-        if err != 0 or read_wavefront_count() != len(ups):
+        ring = ring0.clone()
+        got8, got32 = wk.wavefront_gop(ring, 2, plans, h, S, frames32=True)
+        launches = read_wavefront_count()
+        want = ring0.clone()
+        err = 0
+        for f, t in enumerate(plans.rounds):
+            hd = (2 + 5 * (f + 1)) % 6
+            buf = decode_frame_core_plain(
+                torch.roll(want, -hd, dims=1), t["mc"], t["resid"],
+                t["resid_coef"], t["iops"], t["icoef"], t["seqmap"],
+                t["n_levels"], h, S)
+            want[:, hd] = buf
+            err = max(err, max_err(got32[f], buf),
+                      max_err(got8[f], buf.to(torch.uint8)))
+        err = max(err, max_err(ring, want))
+        if err != 0 or launches != 1:
             raise AssertionError(f"[wavefront] K6 {label}: max abs err "
                                  f"{err} against the plain version, "
-                                 f"{read_wavefront_count()} launches for "
-                                 f"{len(ups)} frame rounds")
-        ms = timed_turns({"k6": lambda: run(decode_frame_core),
-                          "plain": lambda: run(decode_frame_core_plain)},
-                         reps=3, warm=1)
+                                 f"{launches} launches for one GOP")
+        rk, rp = ring0.clone(), ring0.clone()
+        ms = timed_turns(
+            {"k6": lambda: wk.wavefront_gop(rk, 0, plans, h, S),
+             "plain": lambda: decode_gop_plain(rp, 0, plans.rounds, h, S)},
+            reps=3, warm=1)
         work = wavefront_work(rounds, h, S)
+        split = wavefront_split(
+            lambda u: wk.wavefront_gop(rk, 0, u, h, S), rounds, bd.device)
+        log(f"[wavefront] K6 phase split {label}, ms (median of 5 in turns, "
+            f"behind the spin): " + ", ".join(f"{k} {v:.4f}"
+                                              for k, v in split.items())
+            + f" | {smi}")
+
+        def at(c):
+            wk.CLUSTER = c
+            wk.wavefront_gop(rk, 0, plans, h, S)
+
+        try:
+            sweep = timed_turns({f"C={c}": (lambda c=c: at(c))
+                                 for c in CLUSTER_SWEEP}, reps=5, warm=1)
+        finally:
+            wk.CLUSTER = cluster
+        log(f"[wavefront] K6 cluster sweep {label}, ms per GOP (median of 5 "
+            f"in turns, behind the spin): " + ", ".join(
+                f"{k} {v:.4f}" for k, v in sweep.items())
+            + f"; the kernel's constant C={cluster} | {smi}")
         res[label] = {"B": len(gop[0]), "F": len(gop), "max_abs_err": err,
-                      "ms": ms["k6"], "plain_ms": ms["plain"], **work}
+                      "ms": ms["k6"], "plain_ms": ms["plain"],
+                      "split": split, "cluster_sweep": sweep, **work}
         log(f"[wavefront] K6 == the plain version on the card, frame round "
-            f"by frame round, {label} B={len(gop[0])} F={len(gop)} (levels "
-            f"per round {work['levels'][:4]}{'...' if len(gop) > 4 else ''}"
-            f"): K6 {ms['k6']:.3f} ms vs plain {ms['plain']:.1f} ms per "
-            f"GOP (median of 3 in turns, behind the spin); bound "
+            f"by frame round and the ring, {label} B={len(gop[0])} "
+            f"F={len(gop)} in one launch (levels per round "
+            f"{work['levels'][:4]}{'...' if len(gop) > 4 else ''}): K6 "
+            f"{ms['k6']:.4f} ms vs plain {ms['plain']:.1f} ms per GOP "
+            f"(median of 3 in turns, behind the spin); bound "
             f"{work['bound_ms'] * 1e3:.2f} us ({work['bound_by']}: "
             f"{work['bytes'] / 1e6:.2f} MB), K6/bound "
             f"{ms['k6'] / work['bound_ms']:.0f}x | {smi}")
@@ -1267,12 +1332,12 @@ def wavefront_phase(ds, gops, k1_outs, main_oracle, oracle_futs, wide_pkts,
             torch.cuda.synchronize()
             wall.append(time.perf_counter() - t0)
             ms.append(e0.elapsed_time(e1))
-        # one K6 launch per frame round (one shard)
+        # one K6 launch per GOP (one shard)
         res["launches"]["batch"] = read_wavefront_count()
-        if res["launches"]["batch"] != NGOPS * F:
+        if res["launches"]["batch"] != NGOPS:
             raise AssertionError(f"[wavefront] BatchVideoDecoder: "
                                  f"{res['launches']['batch']} K6 launches "
-                                 f"for {NGOPS * F} frame rounds")
+                                 f"for {NGOPS} GOPs")
         for g in range(NGOPS):
             if wf[g].shape != k1_outs[g].shape or not (
                     wf[g] == k1_outs[g]).all():
@@ -1295,22 +1360,17 @@ def wavefront_phase(ds, gops, k1_outs, main_oracle, oracle_futs, wide_pkts,
                                   device="cpu")
         levels = [int(probe.scan_packets(fp)["n_levels"].max())
                   for fp in gops[0]]
-        # device launches of the first frame rounds of GOP 0: the I-frame,
-        # then P; in a fresh process: at this point of a whole run, a
-        # profiler session in this process records no device events on
-        # the card, while one in a fresh process does
+        # device activities of one decode_gop of GOP 0, in a fresh
+        # process: at this point of a whole run, a profiler session in this
+        # process records no device events on the card, while one in a
+        # fresh process does
         with _cf.ProcessPoolExecutor(
                 1, mp_context=multiprocessing.get_context("spawn")) as one:
-            l_i, why, l_p, why_p = one.submit(round_activities_task,
-                                              gops[0][:4]).result()
-        launches = None if l_i is None or l_p is None else (
-            l_i + l_p) / 4
-        why = why or why_p
-        # one kernel for all of a round's levels: the I-frame round's
-        # activities no longer grow with its levels
-        if launches is not None and abs(l_i - l_p / 3) > 4:
-            raise AssertionError(f"[wavefront] device activities: I-frame "
-                                 f"round {l_i}, P-frame rounds {l_p / 3}")
+            acts, why = one.submit(gop_activities_task, gops[0]).result()
+        # one upload, one K6 launch and one download per GOP and shard
+        if acts is not None and acts > 4:
+            raise AssertionError(f"[wavefront] device activities per GOP: "
+                                 f"{acts}")
         res["main"] = {
             "shape": f"B={B} F={F} {W}x{H}", "ms_per_gop": ms,
             "wall_s_per_gop": wall,
@@ -1318,19 +1378,18 @@ def wavefront_phase(ds, gops, k1_outs, main_oracle, oracle_futs, wide_pkts,
             "levels_per_frame_round": float(np.mean(levels)),
             "levels_iframe": levels[0],
             "levels_first_4": levels[:4],
-            "device_launches_iframe_round": l_i,
-            "device_launches_pframe_round": (None if l_p is None
-                                             else l_p / 3)}
+            "device_activities_per_gop": acts}
         log(f"[wavefront] BatchVideoDecoder.decode_gop B={B} {NGOPS}x{F} "
             f"frames == the executor's frames and the oracle on all {B} "
             f"streams (oracle wait {t_wait:.1f} s); ms per GOP (CUDA events) "
-            + ", ".join(f"{m:.1f}" for m in ms) + "; frames/s "
+            + ", ".join(f"{m:.1f}" for m in ms) + "; wall s per GOP "
+            + ", ".join(f"{w:.4f}" for w in wall) + "; frames/s "
             + ", ".join(f"{B * F / w:.1f}" for w in wall)
             + f"; intra levels per frame round {np.mean(levels):.1f} "
-            f"(I-frame {levels[0]}); device launches per frame round "
-            + (f"not measured ({why})" if launches is None
-               else f"{l_i} for the I-frame, {l_p / 3:.0f} per P-frame "
-               f"(frames 1-3; their levels {levels[1:4]}), torch.profiler")
+            f"(I-frame {levels[0]}); K6 launches {res['launches']['batch']}"
+            f"; device activities per GOP "
+            + (f"not measured ({why})" if acts is None
+               else f"{acts}, torch.profiler")
             + f" | {smi}")
         for size, pkts in wide_pkts.items():
             dec = WavefrontVideoDecoder(*size, mf, native=True, device="cuda")
@@ -2853,21 +2912,24 @@ def main(argv=None) -> int:
     wf_paths["dryrun_multichip_32x32"] = entry_res["wavefront"]
     main_wk = wk6[f"{W}x{H}"]
     kernels.append({
-        "name": "wavefront_frame", "route": "cuda",
+        "name": "wavefront_gop", "route": "cuda",
         "source": "mobiclipdecoder_tpu_torch/csrc/wavefront.cu",
-        "replaces": "mobiclipdecoder_tpu/models/pipeline.py:343 (XLA: "
-                    "decode_frame_core under _decode_batch_jit, :368)",
+        "replaces": "mobiclipdecoder_tpu/parallel/batch.py:58 (XLA: "
+                    "decode_gop_jit, a lax.scan of decode_frame_core, "
+                    "mobiclipdecoder_tpu/models/pipeline.py:343)",
         "launches": sum(wf_paths.values()), "launches_by_path": wf_paths,
         "max_abs_err": max(v["max_abs_err"] for v in wk6.values()),
         "ms": main_wk["ms"], "plain_ms": main_wk["plain_ms"],
         "bound_ms": main_wk["bound_ms"], "bound_by": main_wk["bound_by"],
         "library_ms": None, "plain_on": "card",
-        "plain": "decode_frame_core_plain",
-        "shape": f"B={B} F={F} {W}x{H}, ms per GOP of {F} launches",
+        "plain": "decode_gop_plain",
+        "shape": f"B={B} F={F} {W}x{H}, ms per GOP of one launch",
         "serial_depth": main_wk["levels"],
+        "cluster": wavefront_kernels.CLUSTER,
         "by_geometry": {g: {k: v[k] for k in ("B", "F", "ms", "plain_ms",
                                               "bound_ms", "bound_by",
-                                              "bytes", "levels")}
+                                              "bytes", "levels", "split",
+                                              "cluster_sweep")}
                         for g, v in wk6.items()}})
     # K7, K8, K9: no single PyTorch call computes the SAD volume, the
     # FastAudio lattice or the IMA chains (library_ms null); times and

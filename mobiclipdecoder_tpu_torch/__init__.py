@@ -8,7 +8,7 @@ version instead.
 Kernels (csrc/, built with nvcc at first use, bound with ctypes):
   K1/K2 gop_executor.cu   the whole-GOP executor, F frames or one
   K4, K5 prologue.cu      the IDCT pre-pass of dense rows; the blob prologue
-  K6 wavefront.cu         the wavefront engine's frame round
+  K6 wavefront.cu         the wavefront engine's GOP (one launch per GOP)
   K7 sad.cu               the encoder's full-search SAD volume
   K8, K9 audio.cu         the FastAudio lattice; the IMA ADPCM scans
 
@@ -47,9 +47,10 @@ Layers, from the entry point down:
                        ops/executor_ref.py is its plain PyTorch version
   state.py             reference-ring layout and the kernel's intra tables
   models/pipeline.py   the wavefront engine: WavefrontVideoDecoder, one
-                       frame as MC, residuals and intra dependency levels:
-                       on the card one launch of K6 (ops/wavefront_kernels.py,
-                       csrc/wavefront.cu), on the CPU batched torch
+                       frame as MC, residuals and intra dependency levels,
+                       decode_gop a GOP: on the card one launch of K6
+                       (ops/wavefront_kernels.py, csrc/wavefront.cu), on
+                       the CPU batched torch
                        (ops/idct.py: its IDCTs)
   parallel/batch.py    BatchVideoDecoder: B streams on the wavefront engine,
                        on one device or split over several

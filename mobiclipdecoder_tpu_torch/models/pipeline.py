@@ -1,5 +1,5 @@
 """Wavefront reconstruction engine: executes FramePlans on the card with
-one kernel per frame round, on the CPU with batched torch.
+one kernel per GOP, on the CPU with batched torch.
 
 Port of ``mobiclipdecoder_tpu/models/pipeline.py`` (the JAX package's
 ``--engine tpu-xla``), the repository's second, independent decode
@@ -25,11 +25,13 @@ function carries a leading stream axis B.  A frame is built in a flat
 sentinel may repeat within one scatter: MC leaves are disjoint, and so
 are the ops of one level.
 
-``decode_frame_core`` takes the device from its tensors: on the card it is
-one launch of the hand-written kernel K6 (``ops/wavefront_kernels.py``,
-``csrc/wavefront.cu``), the three phases and every intra level in one
-block per stream; on the CPU it is ``decode_frame_core_plain``, the torch
-code below, which is also what K6 is held against.
+``decode_gop`` takes the device from the ring: on the card it is one
+launch of the hand-written kernel K6 (``ops/wavefront_kernels.py``,
+``csrc/wavefront.cu``) for all of a GOP's frame rounds, the JAX package's
+``decode_gop_jit``; on the CPU it is ``decode_gop_plain``, a loop of the
+torch code below, which is also what K6 is held against.
+``decode_frame_core`` is one frame round on a ring as given (K6 with F=1
+on the card).
 """
 from __future__ import annotations
 
@@ -380,6 +382,38 @@ def decode_frame_core(ring, mc, resid, resid_coef, iops, icoef, seqmap,
         ring, mc, resid, resid_coef, iops, icoef, seqmap, n_levels, H, S)
 
 
+def decode_gop_plain(ring, head: int, rounds: list[dict], H: int, S: int):
+    """The plain torch version of ``decode_gop``: each round on the ring in
+    logical order (``torch.roll``) through ``decode_frame_core_plain``,
+    its frame written into its physical slot."""
+    outs = []
+    for f, t in enumerate(rounds):
+        hd = (head + 5 * (f + 1)) % 6
+        buf = decode_frame_core_plain(
+            torch.roll(ring, -hd, dims=1), t["mc"], t["resid"],
+            t["resid_coef"], t["iops"], t["icoef"], t["seqmap"],
+            t["n_levels"], H, S)
+        ring[:, hd] = buf
+        outs.append(buf.to(torch.uint8))
+    return torch.stack(outs)
+
+
+def decode_gop(ring, head: int, plans: wavefront_kernels.GopPlans, H: int,
+               S: int) -> torch.Tensor:
+    """A GOP of B streams: ring (B, 6, HH, S) int32 in physical slots,
+    ``head`` the physical slot of its logical slot 0 (the last frame),
+    ``plans`` the rounds uploaded to the ring's device
+    (``wavefront_kernels.upload_gop``).  Round f's frame goes to physical
+    slot (head + 5 (f + 1)) mod 6; the ring is updated in place.  Returns
+    the frames (F, B, HH, S) uint8 on the ring's device.
+
+    On a CUDA ring one launch of K6; on a CPU ring the plain
+    ``decode_gop_plain``; any other device raises."""
+    if ring.device.type == "cpu":
+        return decode_gop_plain(ring, head, plans.rounds, H, S)
+    return wavefront_kernels.wavefront_gop(ring, head, plans, H, S)
+
+
 def upload_plan(arrays: dict, device) -> dict:
     """prepare_plan()/stack_plans() host arrays -> int32 tensors on
     ``device`` (``n_levels`` stays on the host)."""
@@ -413,8 +447,16 @@ class WavefrontVideoDecoder:
         self.width, self.height = width, height
         self.stride = self.planner.stride
         HH = height + height // 2
-        self.ring = torch.zeros((6, HH, self.stride), dtype=torch.int32,
-                                device=self.device)
+        # physical slots; logical slot 0 (the last frame) is slot head
+        self.rings = torch.zeros((1, 6, HH, self.stride), dtype=torch.int32,
+                                 device=self.device)
+        self.head = 0
+
+    @property
+    def ring(self) -> torch.Tensor:
+        """The (6, HH, S) int32 ring in logical order (slot r the frame r
+        back)."""
+        return torch.roll(self.rings[0], -self.head, dims=0)
 
     @property
     def offset(self):
@@ -433,14 +475,11 @@ class WavefrontVideoDecoder:
         """Decode one frame packet; returns (Y, UV) uint8 numpy planes of
         shapes (H, S) and (H/2, S)."""
         arrays = prepare_plan(self.scan(packet))
-        t = upload_plan(arrays, self.device)
-        H, S = self.height, self.stride
-        ring = torch.roll(self.ring, 1, dims=0)
-        buf = decode_frame_core(
-            ring[None], t["mc"][None], t["resid"][None],
-            t["resid_coef"][None], t["iops"][None], t["icoef"][None],
-            t["seqmap"][None], arrays["n_levels"], H, S)[0]
-        ring[0] = buf
-        self.ring = ring
-        out = buf.to(torch.uint8).cpu().numpy()
+        plans = wavefront_kernels.upload_gop(
+            [{k: np.asarray(v)[None] for k, v in arrays.items()}],
+            self.device)
+        H = self.height
+        out = decode_gop(self.rings, self.head, plans, H, self.stride)
+        self.head = (self.head + 5) % 6
+        out = out[0, 0].cpu().numpy()
         return out[:H], out[H:]

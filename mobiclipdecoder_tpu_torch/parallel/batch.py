@@ -1,14 +1,16 @@
 """Multi-stream batched decoding on the wavefront engine.
 
 Port of ``mobiclipdecoder_tpu/parallel/batch.py``.  Per-stream FramePlans
-are stacked into (B, ...) arrays padded to shared shapes, and the whole
-batch is reconstructed by one ``decode_frame_core`` call per frame round
-(on the card one launch of K6); ``decode_gop`` uploads a GOP's plans once
-and runs it as a loop over frames on a (B, 6, HH, S) int32 ring that stays
-on the device.  ``devices=[...]``, the counterpart of the
-JAX package's ``mesh=``, splits the stream batch into equal shards, one
-per device: each device keeps its shard's ring and runs
-``decode_frame_core`` on its shard's rows of every frame round.
+are stacked into (B, ...) arrays padded to shared shapes per frame round
+(each round keeps its own shapes); ``decode_gop`` uploads a GOP's rounds
+once and decodes them in one ``models/pipeline.py`` ``decode_gop`` call
+(on the card one launch of K6, the JAX package's ``decode_gop_jit``) on a
+(B, 6, HH, S) int32 ring that stays on the device; ``decode_frames`` is
+the same with one round.  The ring keeps physical slots, its logical slot
+0 at ``head`` (``ring`` gives the logical order).  ``devices=[...]``, the
+counterpart of the JAX package's ``mesh=``, splits the stream batch into
+equal shards, one per device: each device keeps its shard's ring and
+decodes its shard's rows of every frame round, one call per shard.
 """
 from __future__ import annotations
 
@@ -16,8 +18,9 @@ import numpy as np
 import torch
 
 from ..models.oracle_video import MobiclipVersion
-from ..models.pipeline import decode_frame_core, prepare_plan
+from ..models.pipeline import decode_gop, prepare_plan
 from ..models.plan import PlanningDecoder
+from ..ops.wavefront_kernels import GopPlans, upload_gop
 from ..utils.device import check_device
 
 
@@ -39,27 +42,16 @@ def stack_plans(prepared: list[dict]) -> dict:
 def upload_rounds(rounds: list[dict], device) -> list[dict]:
     """Host arrays of several frame rounds (stack_plans() outputs,
     ``n_levels`` included) -> per round a dict of int32 tensors on
-    ``device``, each a view of one upload of all of them."""
-    parts, layout, off = [], [], 0
-    for arrays in rounds:
-        lay = {}
-        for k, v in arrays.items():
-            a = np.ascontiguousarray(v, np.int32)
-            lay[k] = (off, a.shape)
-            parts.append(a.ravel())
-            off += a.size
-        layout.append(lay)
-    blob = torch.from_numpy(np.concatenate(parts)).to(device)
-    return [{k: blob[o:o + int(np.prod(sh))].view(sh)
-             for k, (o, sh) in lay.items()} for lay in layout]
+    ``device``, each a view of one upload of all of them
+    (``upload_gop``'s rounds)."""
+    return upload_gop(rounds, device).rounds
 
 
 class BatchVideoDecoder:
-    """Decodes B independent streams in lockstep, one ``decode_frame_core``
-    call per frame round, on ``device``, or with the streams split into
-    equal contiguous shards over ``devices`` (one call per shard and
-    round).  One of the two is required; a CUDA device that is not there
-    raises."""
+    """Decodes B independent streams in lockstep, one ``decode_gop`` call
+    per GOP (or frame round) on ``device``, or with the streams split into
+    equal contiguous shards over ``devices`` (one call per shard).  One of
+    the two is required; a CUDA device that is not there raises."""
 
     def __init__(self, width: int, height: int, version: MobiclipVersion,
                  batch: int, *, device=None, devices=None,
@@ -88,17 +80,20 @@ class BatchVideoDecoder:
         self.stride = self.planners[0].stride
         HH = height + height // 2
         per = batch // len(self.devices)
+        # physical slots; logical slot 0 (the last frame) is slot head
         self.rings = [torch.zeros((per, 6, HH, self.stride),
                                   dtype=torch.int32, device=d)
                       for d in self.devices]
+        self.head = 0
 
     @property
     def ring(self) -> torch.Tensor:
-        """The (B, 6, HH, S) int32 ring: on the device, or with several
-        devices joined on the CPU."""
-        if len(self.rings) == 1:
-            return self.rings[0]
-        return torch.cat([r.cpu() for r in self.rings])
+        """The (B, 6, HH, S) int32 ring in logical order (slot r the frame r
+        back): on the device, or with several devices joined on the CPU."""
+        rings = [torch.roll(r, -self.head, dims=1) for r in self.rings]
+        if len(rings) == 1:
+            return rings[0]
+        return torch.cat([r.cpu() for r in rings])
 
     def scan_packets(self, packets: list[bytes]) -> dict:
         """One frame per stream -> stacked prepare_plan() host arrays."""
@@ -122,45 +117,29 @@ class BatchVideoDecoder:
         return [{k: v[i * per:(i + 1) * per] for k, v in arrays.items()}
                 for i in range(len(self.devices))]
 
-    def _round(self, uploads: list[dict]) -> list[torch.Tensor]:
-        """Roll each shard's ring, decode one frame round from the shard's
-        uploaded plan tensors into slot 0; returns each shard's (B/n, HH,
-        S) int32 frames on its device."""
-        bufs = []
-        for i, t in enumerate(uploads):
-            ring = torch.roll(self.rings[i], 1, dims=1)
-            buf = decode_frame_core(ring, t["mc"], t["resid"],
-                                    t["resid_coef"], t["iops"], t["icoef"],
-                                    t["seqmap"], t["n_levels"], self.height,
-                                    self.stride)
-            ring[:, 0] = buf
-            self.rings[i] = ring
-            bufs.append(buf)
-        return bufs
-
-    def _upload(self, rounds: list[dict]) -> list[list[dict]]:
-        """Frame rounds of stacked host arrays -> per round, each shard's
-        plan tensors: one upload per shard.  Every upload comes before any
-        decode: a copy from pageable memory waits for its stream, which
-        would hold a repeated device's next shard."""
+    def _upload(self, rounds: list[dict]) -> list[GopPlans]:
+        """Frame rounds of stacked host arrays -> each shard's GopPlans: one
+        upload per shard.  Every upload comes before any decode: a copy
+        from pageable memory waits for its stream, which would hold a
+        repeated device's next shard."""
         shards = [self._shards(r) for r in rounds]
-        per_shard = [upload_rounds([s[i] for s in shards], d)
-                     for i, d in enumerate(self.devices)]
-        return [list(shards) for shards in zip(*per_shard)]
+        return [upload_gop([s[i] for s in shards], d)
+                for i, d in enumerate(self.devices)]
+
+    def _decode(self, rounds: list[dict]) -> np.ndarray:
+        """Every shard's rounds in one ``decode_gop`` call each, then one
+        copy to the host each; (F, B, HH, S) uint8."""
+        outs = [decode_gop(ring, self.head, plans, self.height, self.stride)
+                for ring, plans in zip(self.rings, self._upload(rounds))]
+        self.head = (self.head + 5 * len(rounds)) % 6
+        return np.concatenate([o.cpu().numpy() for o in outs], axis=1)
 
     def decode_frames(self, packets: list[bytes]) -> np.ndarray:
         """One frame per stream; returns (B, HH, S) uint8 planes."""
-        bufs = self._round(self._upload([self.scan_packets(packets)])[0])
-        return np.concatenate([b.to(torch.uint8).cpu().numpy()
-                               for b in bufs])
+        return self._decode([self.scan_packets(packets)])[0]
 
     def decode_gop(self, frames: list[list[bytes]]) -> np.ndarray:
         """frames[f][b] = packet of frame f of stream b.  Every frame is
-        scanned and uploaded first (one upload per shard), and the frames
-        stay on the device until the GOP is done; returns (F, B, HH, S)
-        uint8."""
-        uploads = self._upload([self.scan_packets(fp) for fp in frames])
-        steps = [[b.to(torch.uint8) for b in self._round(u)]
-                 for u in uploads]
-        return np.concatenate([torch.stack(shard).cpu().numpy()
-                               for shard in zip(*steps)], axis=1)
+        scanned and uploaded first (one upload per shard), then each shard
+        decodes the GOP in one call; returns (F, B, HH, S) uint8."""
+        return self._decode([self.scan_packets(fp) for fp in frames])

@@ -403,16 +403,22 @@ def test_cuda_blob_path_launches_one_prologue_kernel_and_no_fill(cuda):
                 or "mobi_residual_rows" in n], names
 
 
-def _wavefront_round(cuda, version, size, nb, nframes):
-    """The frame rounds of nb synthesized streams, scanned and uploaded
-    once: (BatchVideoDecoder, per round its plan tensors on the card)."""
-    from mobiclipdecoder_tpu_torch.parallel.batch import (BatchVideoDecoder,
-                                                          upload_rounds)
+def _wavefront_rounds(cuda, version, size, nb, nframes):
+    """(BatchVideoDecoder on the card, the host arrays of the frame rounds
+    of nb synthesized streams)."""
+    from mobiclipdecoder_tpu_torch.parallel.batch import BatchVideoDecoder
     synths = [StreamSynthesizer(*size, version, seed=40 + b)
               for b in range(nb)]
     bd = BatchVideoDecoder(*size, version, batch=nb, device=cuda)
-    rounds = [bd.scan_packets([s.iframe(0x18) if f == 0 else s.pframe()
-                               for s in synths]) for f in range(nframes)]
+    return bd, [bd.scan_packets([s.iframe(0x18) if f == 0 else s.pframe()
+                                 for s in synths]) for f in range(nframes)]
+
+
+def _wavefront_round(cuda, version, size, nb, nframes):
+    """The frame rounds of nb synthesized streams, scanned and uploaded
+    once: (BatchVideoDecoder, per round its plan tensors on the card)."""
+    from mobiclipdecoder_tpu_torch.parallel.batch import upload_rounds
+    bd, rounds = _wavefront_rounds(cuda, version, size, nb, nframes)
     return bd, upload_rounds(rounds, cuda)
 
 
@@ -445,10 +451,41 @@ def test_cuda_wavefront_kernel_matches_plain(cuda, version, size, nb,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("version,size,nb,nframes", [
+    (MobiclipVersion.MODS_DS, (256, 192), 8, 8),
+    (MobiclipVersion.MOFLEX_3DS, (640, 480), 1, 1)], ids=["ds-b8", "640x480"])
+def test_cuda_gop_kernel_matches_plain_round_loop(cuda, version, size, nb,
+                                                  nframes, monkeypatch):
+    """K6 over a whole GOP (8 DS rounds of 8 streams, the head wrapping;
+    a 640x480 I-frame) in one launch == decode_gop_plain's round loop on
+    the card, frames and ring, from a random ring at head 2, for every
+    cluster size."""
+    from mobiclipdecoder_tpu_torch.models import pipeline as pp
+    from mobiclipdecoder_tpu_torch.ops import wavefront_kernels as wk
+    bd, rounds = _wavefront_rounds(cuda, version, size, nb, nframes)
+    plans = wk.upload_gop(rounds, cuda)
+    h, s = size[1], bd.stride
+    ring0 = torch.randint(0, 256, bd.rings[0].shape, dtype=torch.int32,
+                          device=cuda)
+    want_ring = ring0.clone()
+    want = pp.decode_gop_plain(want_ring, 2, plans.rounds, h, s)
+    for c in (1, 2, 4, 8):
+        monkeypatch.setattr(wk, "CLUSTER", c)
+        ring = ring0.clone()
+        before = wk.wavefront_launches
+        got = pp.decode_gop(ring, 2, plans, h, s)
+        assert wk.wavefront_launches == before + 1
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), c
+        assert torch.equal(ring, want_ring), c
+
+
+@pytest.mark.cuda
 def test_cuda_batch_decoder_launches_k6_once_per_round(cuda, monkeypatch):
-    """BatchVideoDecoder on the card: one K6 launch per frame round and
-    shard, and the plain version never runs (patched to raise); frames ==
-    the CPU decoder's."""
+    """BatchVideoDecoder on the card: one K6 launch per GOP and shard
+    (decode_gop) and per frame round and shard (decode_frames), and the
+    plain version never runs (patched to raise); frames == the CPU
+    decoder's."""
     from mobiclipdecoder_tpu_torch.models import pipeline as pp
     from mobiclipdecoder_tpu_torch.ops import wavefront_kernels as wk
     from mobiclipdecoder_tpu_torch.parallel.batch import BatchVideoDecoder
@@ -462,7 +499,7 @@ def test_cuda_batch_decoder_launches_k6_once_per_round(cuda, monkeypatch):
     monkeypatch.setattr(pp, "decode_frame_core_plain", plain)
     before = wk.wavefront_launches
     got = BatchVideoDecoder(W, H, v, batch=4, device=cuda).decode_gop(frames)
-    assert wk.wavefront_launches == before + 3
+    assert wk.wavefront_launches == before + 1      # one launch per GOP
     np.testing.assert_array_equal(got, want)
     two = BatchVideoDecoder(W, H, v, batch=4, devices=[cuda, cuda])
     before = wk.wavefront_launches

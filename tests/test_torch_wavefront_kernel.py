@@ -200,25 +200,25 @@ def test_host_kernel_plane_predictor(size):
 
 
 def test_host_kernel_level_reads_before_its_writes():
-    """One level of 40 ops, more than K6 stages in shared memory at once:
-    its last op takes its left taps from pixels that its first op writes,
-    visible by the sequence map.  As in the functional engines, every op
-    of a level reads the frame as it stood before the level: the taps
-    must be MC's pixels, not the first op's."""
+    """One level of 80 ops, more than K6 gathers in shared memory at once
+    (MOBI_WF_KC, 64): its last op takes its left taps from pixels that its
+    first op writes, visible by the sequence map.  As in the functional
+    engines, every op of a level reads the frame as it stood before the
+    level: the taps must be MC's pixels, not the first op's."""
     W, H, S = 64, 48, 256
     HH = H + H // 2
     rng = np.random.default_rng(7)
     mc = np.array([(y, x, 16, 16, 1, 0, 0) for y in range(0, H, 16)
                    for x in range(0, W, 16)], np.int32)
-    ops = np.zeros((1, 40, 11), np.int32)
+    ops = np.zeros((1, 80, 11), np.int32)
     ops[0, 0] = (0, 8, 8, 4, 3, 0, 1, 0, 0, 1, 9)          # DC 0x80 + res
-    for k in range(1, 39):                                # elsewhere
-        ops[0, k] = (1, 4 * (k // 12), 4 * (k % 12) + 8, 4, 3, 0, 0, 1, 1,
+    for k in range(1, 79):                                # elsewhere
+        ops[0, k] = (1, 4 * (k // 24), 4 * (k % 24) + 8, 4, 3, 0, 0, 1, 1,
                      1, 9)
-    ops[0, 39] = (0, 8, 12, 4, 1, 0, 0, 1, 1, 1, 9)       # copies left taps
+    ops[0, 79] = (0, 8, 12, 4, 1, 0, 0, 1, 1, 1, 9)       # copies left taps
     a = dict(mc=mc, resid=np.zeros((1, 4), np.int32),
              resid_coef=np.zeros((1, 64), np.int32), iops=ops,
-             icoef=rng.integers(-300, 300, (1, 40, 64)).astype(np.int32),
+             icoef=rng.integers(-300, 300, (1, 80, 64)).astype(np.int32),
              seqmap=np.zeros((HH // 4, S // 4), np.int32),
              n_levels=np.int32(1))
     ring = rng.integers(0, 256, (6, HH, S)).astype(np.int32)
