@@ -89,8 +89,8 @@ Then it covers the other geometries and the user's entry points:
                that it was skipped;
   [trace]      torch.profiler (CPU and CUDA activity) over decode_gops of
                20 of the main path's GOPs, then one decode_gop: the
-               engine's mobiclip.scan / .pack / .device_decode spans must
-               appear; their host ms per GOP, and the device's busy share
+               engine's mobiclip.scan / .pack / .dispatch /
+               .device_decode spans must appear; their host ms per GOP, and the device's busy share
                of the window (the union of its kernel, memcpy and memset
                intervals over the wall), under the profiler;
   [bench]      the port's bench (mobiclipdecoder_tpu_torch/bench.py) on the
@@ -177,7 +177,8 @@ FA_CORPUS, FA_CORPUS_ROUNDS = 256, 4      # [audio]: a corpus job's streams
 SAD_RANGE, SAD_REFS = 16, 5               # the encoder's defaults
 ENC_WIDE = (640, 480)                     # [encode] at the defaults
 TRACE_GOPS = 20                     # [trace]: decode_gops under the profiler
-SPAN_NAMES = ("mobiclip.scan", "mobiclip.pack", "mobiclip.device_decode")
+SPAN_NAMES = ("mobiclip.scan", "mobiclip.pack", "mobiclip.dispatch",
+              "mobiclip.device_decode")
 TRACE_WINDOW = "chip_smoke.decode_gops"
 # H100 SXM peaks: memory rate, and the 32-bit rate outside the tensor
 # cores (no int32 peak is published; the executor's arithmetic is 32-bit
@@ -2237,18 +2238,31 @@ def kernel_names(events, w0: float, w1: float) -> dict[str, int]:
     return out
 
 
+def span_counts(dec, gops: int, launches: int) -> dict[str, int]:
+    """The stage spans that decode_gops records over ``gops`` GOPs that
+    took ``launches`` executor launches: one scan and one download wait
+    per GOP; a pack per launch; a dispatch per launch, per join of a GOP
+    split at a frame boundary (launches - gops of them), per download,
+    and per crop when the decoder crops its planes on the device."""
+    crop = dec.crop and dec.width != dec.stride
+    return {"mobiclip.scan": gops, "mobiclip.pack": launches,
+            "mobiclip.dispatch": 2 * launches + gops * crop,
+            "mobiclip.device_decode": gops}
+
+
 def trace_phase(ds, gops, k1_outs, smi) -> dict:
     """[trace]: torch.profiler with CPU and CUDA activity over decode_gops
     of TRACE_GOPS of the main path's GOPs (after a warm-up), then one
-    decode_gop.  The engine's three stage spans must appear (scan and
-    pack once per GOP of the window; device_decode in decode_gop); each
-    span's host ms per GOP, and the device's busy share of the
+    decode_gop.  The engine's stage spans must appear as often as the
+    window's GOPs and executor launches imply (span_counts); each span's
+    host ms per GOP, and the device's busy share of the
     decode_gops window: the union of its kernel, memcpy and memset
     intervals over the window's wall, under the profiler.  The same
     window run untraced first gives the profiler's cost.  Each kernel of
     the window by name, with its count per GOP: exactly one prologue
     kernel (K5) per GOP, and no fill (resid is not zeroed)."""
     from torch.profiler import ProfilerActivity, profile, record_function
+    from mobiclipdecoder_tpu_torch.ops import executor
     from mobiclipdecoder_tpu_torch.ops.vmem_engine import VmemBatchDecoder
     with phase("trace"):
         dec = VmemBatchDecoder(W, H, ds, batch=B, native=True, device="cuda")
@@ -2264,8 +2278,10 @@ def trace_phase(ds, gops, k1_outs, smi) -> dict:
         untraced_ms = (time.perf_counter() - t0) * 1e3
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            l0 = executor.launches + executor.frame_launches
             with record_function(TRACE_WINDOW):
                 n = window()
+            launches = executor.launches + executor.frame_launches - l0
             one = dec.decode_gop(gops[0])
             torch.cuda.synchronize()
         if n != TRACE_GOPS or not np.array_equal(one, k1_outs[0]):
@@ -2280,14 +2296,15 @@ def trace_phase(ds, gops, k1_outs, smi) -> dict:
             raise AssertionError(f"[trace] {len(win)} window ranges")
         w0, w1 = win[0].time_range.start, win[0].time_range.end
         spans = {}
+        wants = span_counts(dec, TRACE_GOPS, launches)
         for name in SPAN_NAMES:
             evs = [e for e in events
                    if e.name == name and e.device_type == cpu]
             inside = [e for e in evs if w0 <= e.time_range.start < w1]
-            want = 0 if name == "mobiclip.device_decode" else TRACE_GOPS
-            if not evs or len(inside) != want:
+            if not evs or len(inside) != wants[name]:
                 raise AssertionError(f"[trace] {name}: {len(evs)} spans, "
-                                     f"{len(inside)} in the window")
+                                     f"{len(inside)} in the window, "
+                                     f"{wants[name]} expected")
             per = inside or evs
             spans[name] = {"spans": len(evs), "ms_per_gop": sum(
                 e.time_range.elapsed_us() for e in per) / 1e3
@@ -2306,7 +2323,7 @@ def trace_phase(ds, gops, k1_outs, smi) -> dict:
             f"torch.profiler (CPU + CUDA activity): host ms per GOP "
             + ", ".join(f"{k} {v['ms_per_gop']:.3f} ({v['spans']} spans)"
                         for k, v in spans.items())
-            + f" (device_decode: one decode_gop's download wait); device "
+            + f" (device_decode: the wait for each download); device "
             f"busy under the profiler {busy_us / 1e3:.3f} of {wall_ms:.3f} "
             f"ms = {share:.3f} of the wall (union of "
             + ", ".join(f"{len(v)} {k}" for k, v in kinds.items())

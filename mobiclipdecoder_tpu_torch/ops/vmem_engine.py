@@ -15,11 +15,18 @@ versions throughout.
 
 Every decode, single frames included, goes through this fused path (a
 single frame is a GOP of one).  The stages carry the JAX engine's trace
-spans as ``torch.profiler.record_function`` ranges at the same sites:
-``mobiclip.scan`` (host scan), ``mobiclip.pack`` (assembly of the upload
-blob) and ``mobiclip.device_decode`` (the wait for a decode's download in
-``decode_gop`` and ``decode_frames``); a ``torch.profiler`` trace shows
-them beside the device's work.  ``decode_gop_fused_sharded`` and
+spans at the same sites, through ``runtime/metrics.py`` ``span`` (a
+``torch.profiler`` range while the profiler records, else nothing):
+``mobiclip.scan`` (host scan, on the driving thread around the scan pool),
+``mobiclip.pack`` (assembly of the upload blob), and the port's
+``mobiclip.dispatch`` (the upload and the enqueue of K5, K1, the crop, the
+ring's renormalisation and the download) and ``mobiclip.device_decode``
+(the host's wait for a decode's download, on every path); a
+``torch.profiler`` trace shows them beside the device's work.  Each
+decoder's ``metrics`` (and the process's ``TOTALS``) count its frames,
+the scans' op chunks per executor launch, and the native scan stage's
+time: the scan threads' busy time, the part of it inside the native
+scanner, and the stage's wall time times the threads that could run.  ``decode_gop_fused_sharded`` and
 ``decode_round_sharded`` split the stream batch over a list of devices,
 one executor launch per shard (the JAX package's shard_map paths).
 """
@@ -31,10 +38,9 @@ from typing import Iterator
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..models.plan import PlanningDecoder
-from ..runtime.metrics import DecodeMetrics
+from ..runtime.metrics import DecodeMetrics, span
 from ..state import ring_shape
 from ..utils.device import check_device
 from . import executor, packing
@@ -178,7 +184,8 @@ class VmemBatchDecoder:
             except (OSError, AttributeError, RuntimeError):
                 if native is True:
                     raise
-        self._pool = _cf.ThreadPoolExecutor(max_workers=min(batch, 16))
+        self.scan_threads = min(batch, 16)
+        self._pool = _cf.ThreadPoolExecutor(max_workers=self.scan_threads)
         self.ring = torch.zeros(ring_shape(batch, height, self.stride),
                                 dtype=torch.uint8, device=self.device)
         self.metrics = DecodeMetrics()
@@ -191,7 +198,8 @@ class VmemBatchDecoder:
 
     def ring_frame_np(self, b: int = 0, slot: int = 0) -> np.ndarray:
         """Host copy of one ring frame as uint8 rows (G8*8, SP)."""
-        return self.ring[b, slot].cpu().numpy()
+        with span("mobiclip.device_decode"):
+            return self.ring[b, slot].cpu().numpy()
 
     def _scan_one(self, b: int, packet: bytes) -> dict:
         if self.natives is not None:
@@ -223,38 +231,31 @@ class VmemBatchDecoder:
     def decode_frames(self, packets: list[bytes]) -> np.ndarray:
         """One frame per stream; returns (B, HH, S) uint8 planes.  Runs as
         the fused GOP executor with F=1."""
-        t0 = time.perf_counter()
-        t1, yuv = self._dispatch_gop_fused([packets])
-        with record_function("mobiclip.device_decode"):
+        yuv = self._dispatch_gop_fused([packets])
+        with span("mobiclip.device_decode"):
             out = yuv[0].cpu().numpy()
-        t2 = time.perf_counter()
-        m = self.metrics
-        m.frames += self.B
-        m.bytes_in += sum(len(p) for p in packets)
-        m.scan_seconds += t1 - t0
-        m.device_seconds += t2 - t1
-        m.wall_seconds += t2 - t0
+        self.metrics.add(frames=self.B, bytes_in=sum(map(len, packets)))
         return out
 
     def _dispatch_gop_fused(self, frames: list[list[bytes]]):
-        """Scan + pack + dispatch one GOP; returns (scan_end_time, device
-        yuv) without waiting for the device.  The C++ scanner emits the
-        packed parts directly; the per-frame plan path takes over when
-        native scanning is unavailable or the GOP does not fit the native
-        format (the C++ state is rewound first)."""
+        """Scan + pack + dispatch one GOP; returns the device yuv without
+        waiting for the device.  The C++ scanner emits the packed parts
+        directly; the per-frame plan path takes over when native scanning
+        is unavailable or the GOP does not fit the native format (the C++
+        state is rewound first)."""
         if self.natives is not None:
-            out = self._dispatch_gop_native(frames)
-            if out is not None:
-                return out[0], self._maybe_crop(out[1])
-        with record_function("mobiclip.scan"):
+            yuv = self._dispatch_gop_native(frames)
+            if yuv is not None:
+                return self._maybe_crop(yuv)
+        with span("mobiclip.scan"):
             plans_fb = [self._scan_all(fp) for fp in frames]
-        t1, yuv = self._dispatch_plans(plans_fb)
-        return t1, self._maybe_crop(yuv)
+        return self._maybe_crop(self._dispatch_plans(plans_fb))
 
     def _maybe_crop(self, yuv):
         if not self.crop or self.width == self.stride:
             return yuv
-        return crop_gop_yuv(yuv, self.height, self.width, self.stride)
+        with span("mobiclip.dispatch"):
+            return crop_gop_yuv(yuv, self.height, self.width, self.stride)
 
     def _dispatch_gop_native(self, frames: list[list[bytes]]):
         """Whole-GOP native scan+pack+dispatch, or None to fall back (with
@@ -263,7 +264,8 @@ class VmemBatchDecoder:
         if F == 0 or F >= 4096:
             return None
         per = [[frames[f][b] for f in range(F)] for b in range(self.B)]
-        with record_function("mobiclip.scan"):
+        with span("mobiclip.scan"):
+            t0 = time.perf_counter()
             for nv in self.natives:
                 nv.checkpoint()
             if self.B > 1:
@@ -272,15 +274,27 @@ class VmemBatchDecoder:
                     range(self.B)))
             else:
                 res = [self.natives[0].scan_gop_packed(per[0])]
-        if any(r["err"] or r["val_overflow"] or r["done"] != F
-               for r in res):
             # malformed frame, >int16 coefficient, or a stream outgrew the
             # scan buffers: rewind every stream and let the plan path redo
             # the GOP
-            for nv in self.natives:
-                nv.rollback()
+            redo = any(r["err"] or r["val_overflow"] or r["done"] != F
+                       for r in res)
+            if redo:
+                for nv in self.natives:
+                    nv.rollback()
+            wall = time.perf_counter() - t0
+        self._count_scans(res, wall, self.scan_threads)
+        if redo:
             return None
         return self._dispatch_parts([_gop_part(r) for r in res])
+
+    def _count_scans(self, res: list[dict], wall: float, threads: int):
+        """Adds a native scan stage of ``wall`` seconds on ``threads``
+        threads, whose per-stream results are ``res``."""
+        self.metrics.add(
+            scan_slot_seconds=wall * threads,
+            scan_busy_seconds=sum(r["seconds"] for r in res),
+            scan_native_seconds=sum(r["native_seconds"] for r in res))
 
     def _dispatch_parts(self, parts: list[dict]):
         """Dispatch per-stream GOP parts, splitting at frame boundaries
@@ -296,25 +310,33 @@ class VmemBatchDecoder:
                     raise ValueError(
                         "single frame exceeds fused-GOP chunk buckets")
                 # a lone frame too dense for the sparse format: dense upload
-                ops, coefs, sizes = _part_dense_arrays(parts)
-                t1 = time.perf_counter()
-                self.ring, yuv = _decode_gop_fused(
-                    self.ring, self._upload(ops), self._upload(coefs),
-                    self._upload(sizes), F, self.height, self.stride)
-                return t1, yuv
+                with span("mobiclip.pack"):
+                    ops, coefs, sizes = _part_dense_arrays(parts)
+                with span("mobiclip.dispatch"):
+                    self.ring, yuv = _decode_gop_fused(
+                        self.ring, self._upload(ops), self._upload(coefs),
+                        self._upload(sizes), F, self.height, self.stride)
+                self._count_launch(parts)
+                return yuv
             mid = F // 2
-            _ta, ya = self._dispatch_parts(
+            ya = self._dispatch_parts(
                 [_split_gop_part(q, 0, mid) for q in parts])
-            tb, yb = self._dispatch_parts(
+            yb = self._dispatch_parts(
                 [_split_gop_part(q, mid, F) for q in parts])
-            return tb, torch.cat([ya, yb], dim=0)
-        with record_function("mobiclip.pack"):
+            with span("mobiclip.dispatch"):
+                return torch.cat([ya, yb], dim=0)
+        with span("mobiclip.pack"):
             blob, nct, nnzb = _assemble_gop_parts(parts)
-        t1 = time.perf_counter()
-        self.ring, yuv = _decode_gop_fused_sblob(
-            self.ring, self._upload(blob), F, nct, nnzb, self.height,
-            self.stride)
-        return t1, yuv
+        with span("mobiclip.dispatch"):
+            self.ring, yuv = _decode_gop_fused_sblob(
+                self.ring, self._upload(blob), F, nct, nnzb, self.height,
+                self.stride)
+        self._count_launch(parts)
+        return yuv
+
+    def _count_launch(self, parts: list[dict]) -> None:
+        """Adds the op chunks of one executor launch over ``parts``."""
+        self.metrics.add(op_chunks=sum(q["c1"] - q["c0"] for q in parts))
 
     def _dispatch_plans(self, plans_fb: list[list[dict]]):
         """Pack pre-scanned per-frame plans and dispatch the GOP, split
@@ -328,29 +350,31 @@ class VmemBatchDecoder:
                 totals[b] += len(_frame_chunk_spans(p["ops"][1:1 + n]))
         if max(totals) > cap and len(plans_fb) > 1:
             mid = len(plans_fb) // 2
-            _t1a, ya = self._dispatch_plans(plans_fb[:mid])
-            t1b, yb = self._dispatch_plans(plans_fb[mid:])
-            return t1b, torch.cat([ya, yb], dim=0)
-        return self._dispatch_plans_one(plans_fb)
+            ya = self._dispatch_plans(plans_fb[:mid])
+            yb = self._dispatch_plans(plans_fb[mid:])
+            with span("mobiclip.dispatch"):
+                return torch.cat([ya, yb], dim=0)
+        return self._dispatch_plans_one(plans_fb, sum(totals))
 
-    def _dispatch_plans_one(self, plans_fb: list[list[dict]]):
+    def _dispatch_plans_one(self, plans_fb: list[list[dict]], chunks: int):
         F = len(plans_fb)
-        with record_function("mobiclip.pack"):
+        with span("mobiclip.pack"):
             ops, coefs, sizes = _pack_gop_chunks(plans_fb, self.B)
-        t1 = time.perf_counter()
-        nct = ops.shape[1]
-        sp = _pack_gop_blob_sparse(ops, coefs,
-                                   sizes.reshape(self.B, nct * CHUNK))
-        if sp is not None:
-            blob, nnzb = sp
-            self.ring, yuv = _decode_gop_fused_sblob(
-                self.ring, self._upload(blob), F, nct, nnzb, self.height,
-                self.stride)
-        else:
-            self.ring, yuv = _decode_gop_fused(
-                self.ring, self._upload(ops), self._upload(coefs),
-                self._upload(sizes), F, self.height, self.stride)
-        return t1, yuv
+            nct = ops.shape[1]
+            sp = _pack_gop_blob_sparse(ops, coefs,
+                                       sizes.reshape(self.B, nct * CHUNK))
+        with span("mobiclip.dispatch"):
+            if sp is not None:
+                blob, nnzb = sp
+                self.ring, yuv = _decode_gop_fused_sblob(
+                    self.ring, self._upload(blob), F, nct, nnzb,
+                    self.height, self.stride)
+            else:
+                self.ring, yuv = _decode_gop_fused(
+                    self.ring, self._upload(ops), self._upload(coefs),
+                    self._upload(sizes), F, self.height, self.stride)
+        self.metrics.add(op_chunks=chunks)
+        return yuv
 
     def _start_download(self, yuv: torch.Tensor):
         """Begin the device->host copy of a GOP's planes; returns
@@ -372,23 +396,22 @@ class VmemBatchDecoder:
         order."""
         pending = None
         for frames in gops:
-            t0 = time.perf_counter()
-            _t1, yuv = self._dispatch_gop_fused(frames)
-            nxt = (*self._start_download(yuv), len(frames) * self.B, t0)
+            yuv = self._dispatch_gop_fused(frames)
+            with span("mobiclip.dispatch"):
+                nxt = self._start_download(yuv)
+            self.metrics.add(frames=len(frames) * self.B,
+                             bytes_in=sum(sum(map(len, fp)) for fp in frames))
             if pending is not None:
                 yield self._finish(*pending)
             pending = nxt
         if pending is not None:
             yield self._finish(*pending)
 
-    def _finish(self, host, ev, n_frames: int, t0: float) -> np.ndarray:
-        if ev is not None:
-            ev.synchronize()
-        arr = host.numpy()
-        m = self.metrics
-        m.frames += n_frames
-        m.wall_seconds += time.perf_counter() - t0
-        return arr
+    def _finish(self, host, ev) -> np.ndarray:
+        with span("mobiclip.device_decode"):
+            if ev is not None:
+                ev.synchronize()
+            return host.numpy()
 
     def decode_gop(self, frames: list[list[bytes]],
                    fused: bool = True) -> np.ndarray:
@@ -400,18 +423,11 @@ class VmemBatchDecoder:
         per-frame launch forms are not ported, so ``fused=False`` takes
         the same fused path."""
         del fused
-        t0 = time.perf_counter()
-        F = len(frames)
-        t1, yuv = self._dispatch_gop_fused(frames)
-        with record_function("mobiclip.device_decode"):
+        yuv = self._dispatch_gop_fused(frames)
+        with span("mobiclip.device_decode"):
             out = yuv.cpu().numpy()
-        t2 = time.perf_counter()
-        m = self.metrics
-        m.frames += F * self.B
-        m.bytes_in += sum(len(p) for fp in frames for p in fp)
-        m.scan_seconds += t1 - t0
-        m.device_seconds += t2 - t1
-        m.wall_seconds += t2 - t0
+        self.metrics.add(frames=len(frames) * self.B,
+                         bytes_in=sum(sum(map(len, fp)) for fp in frames))
         return out
 
 
@@ -435,27 +451,29 @@ class VmemVideoDecoder(VmemBatchDecoder):
         scanned.  One native scanner_scan_gop call covers the chunk; a
         coefficient beyond int16 rewinds it and the remainder takes the
         per-packet plan path."""
-        t0 = time.perf_counter()
         yuvs: list[np.ndarray] = []
         offsets: list[int] = []
         err = None
-        t_scan = 0.0
         rem = list(packets)
         ndone = 0
         nv = self.natives[0] if self.natives is not None else None
         while rem and nv is not None:
-            ts = time.perf_counter()
-            nv.checkpoint()
-            r = nv.scan_gop_packed(rem)
-            t_scan += time.perf_counter() - ts
+            with span("mobiclip.scan"):
+                ts = time.perf_counter()
+                nv.checkpoint()
+                r = nv.scan_gop_packed(rem)
+                if r["val_overflow"]:
+                    nv.rollback()
+                wall = time.perf_counter() - ts
+            self._count_scans([r], wall, 1)
             if r["val_overflow"]:
-                nv.rollback()
                 break
             done = r["done"]
             offsets.extend(int(c) for c in r["consumed"])
             if done:
-                _t1, yuv = self._dispatch_parts([_gop_part(r)])
-                yuvs.append(self._maybe_crop(yuv)[:, 0].cpu().numpy())
+                yuv = self._maybe_crop(self._dispatch_parts([_gop_part(r)]))
+                with span("mobiclip.device_decode"):
+                    yuvs.append(yuv[:, 0].cpu().numpy())
                 ndone += done
                 rem = rem[done:]
             if r["err"]:
@@ -468,32 +486,28 @@ class VmemVideoDecoder(VmemBatchDecoder):
                 break
         if rem and err is None:
             plans_fb: list[list[dict]] = []
-            ts = time.perf_counter()
-            for i, pkt in enumerate(rem):
-                try:
-                    plans_fb.append([self._scan_one(0, pkt)])
-                    offsets.append(self.offset)
-                except Exception:
-                    # per-frame containment: a malformed packet ends the
-                    # chunk at its index; the caller decides what follows
-                    err = ndone + i
-                    break
-            t_scan += time.perf_counter() - ts
+            with span("mobiclip.scan"):
+                for i, pkt in enumerate(rem):
+                    try:
+                        plans_fb.append([self._scan_one(0, pkt)])
+                        offsets.append(self.offset)
+                    except Exception:
+                        # per-frame containment: a malformed packet ends
+                        # the chunk at its index; the caller decides what
+                        # follows
+                        err = ndone + i
+                        break
             if plans_fb:
-                _t1, yuv = self._dispatch_plans(plans_fb)
-                yuvs.append(self._maybe_crop(yuv)[:, 0].cpu().numpy())
+                yuv = self._maybe_crop(self._dispatch_plans(plans_fb))
+                with span("mobiclip.device_decode"):
+                    yuvs.append(yuv[:, 0].cpu().numpy())
                 ndone += len(plans_fb)
         out_w = self.width if self.crop else self.stride
         out = (np.concatenate(yuvs, axis=0) if yuvs else
                np.zeros((0, self.height + self.height // 2, out_w),
                         np.uint8))
-        t2 = time.perf_counter()
-        m = self.metrics
-        m.frames += ndone
-        m.bytes_in += sum(len(p) for p in packets[:ndone])
-        m.scan_seconds += t_scan
-        m.device_seconds += (t2 - t0) - t_scan
-        m.wall_seconds += t2 - t0
+        self.metrics.add(frames=ndone,
+                         bytes_in=sum(map(len, packets[:ndone])))
         return out, offsets, err
 
     def decode_frame(self, packet: bytes) -> tuple[np.ndarray, np.ndarray]:

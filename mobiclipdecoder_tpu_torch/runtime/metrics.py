@@ -1,66 +1,60 @@
-"""Structured decode metrics (SURVEY.md §5 observability).
+"""Decode counters and trace spans (SURVEY.md §5 observability).
 
 The reference's only observability is a percent counter in the CLI
-(MobiConverter/Program.cs:168-175).  Batch jobs here get per-stage counters —
-frames, macroblock ops, coded blocks, bytes, wall-clock per stage — and a
-final JSON report aligned with BASELINE.json's metrics.
+(MobiConverter/Program.cs:168-175).  Here each decoder keeps a
+``DecodeMetrics`` of what it did (frames, input bytes, the op chunks its
+scans emitted, the time of its native scans), and every add
+also goes to the process-wide ``TOTALS``, which outlives the decoders that a
+transcoder builds per file.  Only the thread that drives a decode adds:
+scan-pool workers time their own task and return the times in the scan
+result.  The counters stay on whether or not a profile is taken.
+
+``span(name)`` is the port's one way to open a ``torch.profiler`` range
+(``mobiclip.*``): a ``record_function`` while the profiler records on the
+calling thread, else a shared null context, so a span costs one flag check
+when tracing is off.  The profiler's state is per thread, so spans are
+opened on the driving thread only; no layer's span encloses another's, and
+none is open across a ``yield``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-import json
-import time
+
+from torch.autograd import _profiler_enabled
+from torch.profiler import record_function
+
+_NULL = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A ``torch.profiler`` range named ``name`` while the profiler
+    records on this thread, else a no-op context."""
+    if _profiler_enabled():
+        return record_function(name)
+    return _NULL
 
 
 @dataclasses.dataclass
 class DecodeMetrics:
     frames: int = 0
-    keyframes: int = 0
     bytes_in: int = 0
-    mc_blocks: int = 0
-    resid_blocks: int = 0
-    intra_blocks: int = 0
-    intra_levels: int = 0
-    pcm_samples: int = 0
-    scan_seconds: float = 0.0
-    device_seconds: float = 0.0
-    wall_seconds: float = 0.0
+    #: the scans' op chunks (``nct``) summed over the streams of each
+    #: executor launch, padding to buckets left out
+    op_chunks: int = 0
+    #: each native whole-GOP scan's own time, in the thread that ran it,
+    #: summed over streams; the part of it inside ``scanner_scan_gop``;
+    #: those stages' wall time times the threads that could run
+    scan_busy_seconds: float = 0.0
+    scan_native_seconds: float = 0.0
+    scan_slot_seconds: float = 0.0
 
-    def add_plan(self, plan) -> None:
-        self.mc_blocks += int(plan.mc.shape[0])
-        self.resid_blocks += int(plan.resid.shape[0])
-        self.intra_blocks += int(plan.intra.shape[0])
-        self.intra_levels += int(plan.n_levels)
-
-    @property
-    def fps(self) -> float:
-        return self.frames / self.wall_seconds if self.wall_seconds else 0.0
-
-    def report(self) -> dict:
-        d = dataclasses.asdict(self)
-        d["fps"] = round(self.fps, 2)
-        if self.frames:
-            d["mc_blocks_per_frame"] = round(self.mc_blocks / self.frames, 1)
-            d["intra_blocks_per_frame"] = round(
-                self.intra_blocks / self.frames, 1)
-        return d
-
-    def json(self) -> str:
-        return json.dumps(self.report())
+    def add(self, **counts) -> None:
+        """Add to these counters and to ``TOTALS``."""
+        for k, v in counts.items():
+            setattr(self, k, getattr(self, k) + v)
+            setattr(TOTALS, k, getattr(TOTALS, k) + v)
 
 
-class StageTimer:
-    """`with metrics.time(m, "scan_seconds"):` wall-clock accumulator."""
-
-    def __init__(self, metrics: DecodeMetrics, field: str):
-        self.m = metrics
-        self.field = field
-
-    def __enter__(self):
-        self.t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        setattr(self.m, self.field,
-                getattr(self.m, self.field) + time.perf_counter() - self.t0)
-        return False
+#: every decoder's counters in this process, summed
+TOTALS = DecodeMetrics()

@@ -21,6 +21,14 @@ the Windows AVI library.  A copy of the JAX package's
 The wavefront decoder has no ``decode_stream_chunk``, so the transcoder
 decodes it frame by frame, as the JAX package does ``"tpu-xla"``.  The JAX
 package's ``"tpu"`` and ``"tpu-xla"`` names raise ``ValueError`` here.
+
+Under ``torch.profiler`` the transcoder's layers record spans
+(``runtime/metrics.py`` ``span``) beside the decoder's: ``mobiclip.setup``
+(building the video decoder), ``mobiclip.demux`` (the container's parsing),
+``mobiclip.audio`` (the host audio decoders) and ``mobiclip.emit`` (each
+``DecodedFrame``'s plane copies).  None encloses another layer's span and
+none is open across a ``yield``, so each stretch of host time belongs to
+one layer.
 """
 from __future__ import annotations
 
@@ -37,6 +45,7 @@ from ..models.audio_sx import SxDecoder
 from ..models.oracle_video import MobiclipVersion, OracleDecoder
 from ..ops.vmem_engine import VmemVideoDecoder
 from ..utils import rawio
+from .metrics import span
 
 
 @dataclasses.dataclass
@@ -98,6 +107,12 @@ BATCH_ENGINES = ("oracle", "cuda", "cpu")
 
 def _make_video_decoder(width: int, height: int, version: MobiclipVersion,
                         engine: str):
+    with span("mobiclip.setup"):
+        return _new_video_decoder(width, height, version, engine)
+
+
+def _new_video_decoder(width: int, height: int, version: MobiclipVersion,
+                       engine: str):
     if engine == "oracle":
         return OracleDecoder(width, height, version)
     if engine in ("cuda", "cpu"):
@@ -127,7 +142,8 @@ def decode_mods(data: bytes, engine: str = "oracle") -> Iterator[DecodedFrame]:
     With a chunk-capable device engine, CHUNK_FRAMES frames go through one
     fused device dispatch; the per-frame bitstream end offsets the audio
     layer needs come from the host scanner."""
-    dm = ModsDemuxer(data)
+    with span("mobiclip.demux"):
+        dm = ModsDemuxer(data)
     h = dm.header
     W, H = h.width, h.height
     dec = _make_video_decoder(W, H, MobiclipVersion.MODS_DS, engine)
@@ -198,13 +214,17 @@ def decode_mods(data: bytes, engine: str = "oracle") -> Iterator[DecodedFrame]:
 
     def emit(y, uv, rec, end_off, corrupt) -> DecodedFrame:
         pkt, n_audio, is_key = rec
-        pcm = None if corrupt else audio_for(pkt, n_audio, is_key, end_off)
-        fr = DecodedFrame(
-            index=state["frame_idx"],
-            y=y[:H, :W].copy(),
-            u=_uv_halves(uv[:H // 2], W, S)[0].copy(),
-            v=_uv_halves(uv[:H // 2], W, S)[1].copy(),
-            keyframe=is_key, pcm=pcm, corrupt=corrupt)
+        pcm = None
+        if not corrupt:
+            with span("mobiclip.audio"):
+                pcm = audio_for(pkt, n_audio, is_key, end_off)
+        with span("mobiclip.emit"):
+            fr = DecodedFrame(
+                index=state["frame_idx"],
+                y=y[:H, :W].copy(),
+                u=_uv_halves(uv[:H // 2], W, S)[0].copy(),
+                v=_uv_halves(uv[:H // 2], W, S)[1].copy(),
+                keyframe=is_key, pcm=pcm, corrupt=corrupt)
         state["frame_idx"] += 1
         return fr
 
@@ -212,12 +232,13 @@ def decode_mods(data: bytes, engine: str = "oracle") -> Iterator[DecodedFrame]:
         pending: list = []
         eof = False
         while True:
-            while not eof and len(pending) < CHUNK_FRAMES:
-                rec = dm.read_frame()
-                if rec is None:
-                    eof = True
-                    break
-                pending.append(rec)
+            with span("mobiclip.demux"):
+                while not eof and len(pending) < CHUNK_FRAMES:
+                    rec = dm.read_frame()
+                    if rec is None:
+                        eof = True
+                        break
+                    pending.append(rec)
             if not pending:
                 return
             yuv, offs, err = dec.decode_stream_chunk(
@@ -238,7 +259,8 @@ def decode_mods(data: bytes, engine: str = "oracle") -> Iterator[DecodedFrame]:
         return
 
     while True:
-        rec = dm.read_frame()
+        with span("mobiclip.demux"):
+            rec = dm.read_frame()
         if rec is None:
             return
         pkt, _n_audio, _is_key = rec
@@ -509,11 +531,12 @@ def decode_moflex(data: bytes, engine: str = "oracle",
 
     def _emit(y, uv, pcm, corrupt) -> None:
         W, H, S = state["W"], state["H"], state["S"]
-        out_frames.append(DecodedFrame(
-            index=state["idx"], y=y[:H, :W].copy(),
-            u=_uv_halves(uv[:H // 2], W, S)[0].copy(),
-            v=_uv_halves(uv[:H // 2], W, S)[1].copy(),
-            keyframe=False, pcm=pcm, corrupt=corrupt))
+        with span("mobiclip.emit"):
+            out_frames.append(DecodedFrame(
+                index=state["idx"], y=y[:H, :W].copy(),
+                u=_uv_halves(uv[:H // 2], W, S)[0].copy(),
+                v=_uv_halves(uv[:H // 2], W, S)[1].copy(),
+                keyframe=False, pcm=pcm, corrupt=corrupt))
         state["idx"] += 1
 
     def _flush_chunk(final: bool) -> None:
@@ -538,6 +561,8 @@ def decode_moflex(data: bytes, engine: str = "oracle",
                 del pending_v[:len(batch)]
 
     def on_frame(chunk, payload: bytes) -> None:
+        """One complete frame of a stream, taken from ``received`` after
+        the demuxer's ``read_packet`` returned."""
         if isinstance(chunk, (VideoStream, VideoStreamWithLayout)):
             if state["vid"] is None:
                 state["vid"] = chunk.stream_index
@@ -563,7 +588,8 @@ def decode_moflex(data: bytes, engine: str = "oracle",
             _emit(y, uv, pcm, corrupt)
         elif isinstance(chunk, AudioStream):
             try:
-                _decode_audio_chunk(chunk, payload)
+                with span("mobiclip.audio"):
+                    _decode_audio_chunk(chunk, payload)
             except Exception:
                 pass  # corrupt audio packet: drop it, keep the stream going
 
@@ -602,11 +628,18 @@ def decode_moflex(data: bytes, engine: str = "oracle",
                         for c in chans2]
                 pcm_pending.append(rawio.interleave_channels(arrs))
 
-    dm = MoflexDemuxer(data, on_frame=on_frame)
+    # the demuxer's callback only queues each frame, so that the decode of
+    # a packet's frames runs outside its parse (mobiclip.demux)
+    received: list[tuple[object, bytes]] = []
+    dm = MoflexDemuxer(data, on_frame=lambda c, p: received.append((c, p)))
     stall = 0
     last_pos = -1
     while True:
-        r = dm.read_packet()
+        with span("mobiclip.demux"):
+            r = dm.read_packet()
+        for chunk, payload in received:
+            on_frame(chunk, payload)
+        received.clear()
         for fr in out_frames:
             yield fr
         out_frames.clear()
@@ -637,13 +670,14 @@ def _chunked_video_frames(dec, packets, W: int, H: int,
 
     def emit(y, uv, corrupt):
         nonlocal idx
-        fr = DecodedFrame(
-            index=idx, y=y[:H, :W].copy(),
-            u=_uv_halves(uv[:H // 2], W, S)[0].copy(),
-            v=_uv_halves(uv[:H // 2], W, S)[1].copy(),
-            keyframe=(idx == 0),
-            pcm=(pcms[idx] if pcms is not None else None),
-            corrupt=corrupt)
+        with span("mobiclip.emit"):
+            fr = DecodedFrame(
+                index=idx, y=y[:H, :W].copy(),
+                u=_uv_halves(uv[:H // 2], W, S)[0].copy(),
+                v=_uv_halves(uv[:H // 2], W, S)[1].copy(),
+                keyframe=(idx == 0),
+                pcm=(pcms[idx] if pcms is not None else None),
+                corrupt=corrupt)
         idx += 1
         return fr
 

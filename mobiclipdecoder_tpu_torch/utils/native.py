@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import ctypes
 import struct
+import time
 from pathlib import Path
 
 import numpy as np
@@ -200,9 +201,12 @@ class NativePlanner:
           err   bool                  frame ``done`` was malformed
           val_overflow bool           a |coef| > int16 was clipped (caller
                                       must fall back to a dense path)
+          seconds float               this call's own time, in its thread
+          native_seconds float        the part of it in scanner_scan_gop
         done < len(packets) with err=False means an output cap was hit;
         call again with packets[done:] (state rewound to the frame edge).
         """
+        t0 = time.perf_counter()
         n = len(packets)
         if n >= 4096:
             raise ValueError("GOP too long for 12-bit frame ids")
@@ -225,18 +229,21 @@ class NativePlanner:
         def p(a):
             return a.ctypes.data_as(ctypes.c_void_p)
 
+        t1 = time.perf_counter()
         self._lib.scanner_scan_gop(
             self._ctx, data, p(offs), n,
             p(ops3), self.GOP_NCT_CAP,
             p(idx), p(val), self.GOP_NNZ_CAP,
             p(szw), p(consumed), p(frame_nct), p(frame_nnz), p(meta))
+        t2 = time.perf_counter()
         nct, nnz, done, err, vov = (int(meta[k]) for k in range(5))
         if done:
             self.offset = int(consumed[done - 1])
         return dict(ops3=ops3, nct=nct, szw=szw, idx=idx, val=val, nnz=nnz,
                     frame_nct=frame_nct[:done], frame_nnz=frame_nnz[:done],
                     consumed=consumed[:done], done=done, err=bool(err),
-                    val_overflow=bool(vov))
+                    val_overflow=bool(vov), native_seconds=t2 - t1,
+                    seconds=time.perf_counter() - t0)
 
     def scan(self, packet: bytes) -> FramePlan:
         H, S = self.height, self.stride
