@@ -32,7 +32,8 @@ Then it covers the other geometries and the user's entry points:
   [transcode]  `python -m mobiclipdecoder_tpu_torch decode` (in process)
                of a MODS 256x192 with IMA audio, a Moflex 400x240 with
                IMA audio and a MOC5 640x480, 20 frames each: the .y4m and
-               .wav bytes equal those of `--engine oracle`;
+               .wav bytes equal those of `--engine oracle`, and one K9
+               launch per 16-frame chunk that carries IMA audio;
   [batch]      the corpus worker over 8 MODS files of 2 GOPs each, 8
                streams per launch: every shard equals the oracle worker's;
   [wavefront]  the wavefront engine (the JAX package's tpu-xla; on the
@@ -67,11 +68,14 @@ Then it covers the other geometries and the user's entry points:
   [audio]      K9 (the IMA ADPCM scans) == its plain version on the card at
                64 channels x 1 s on random bytes and the four pinned cases
                of tests/test_torch_audio.py, and decode_packets on the card
-               == the host decoder on each; K8 (the FastAudio lattice) ==
-               its plain version on the card over 4 rounds of 256
-               channels, and FastAudioBatchDecoder on the card (16
-               channels x 50 packets) == the host decoders and the plain
-               version round by round; each kernel and its plain version
+               == the host decoder on each; K9 given row lengths at the
+               transcoder's shapes (4 x 4,096 and 32 x 256 nibbles) ==
+               the plain version, samples and final states, each timed;
+               K8 (the FastAudio lattice) == its plain version on the
+               card over 4 rounds of 256 channels, and
+               FastAudioBatchDecoder on the card (16 channels x 50
+               packets) == the host decoders and the plain version round
+               by round; each kernel and its plain version
                timed in turns beside its bound; K8's and K9's launches;
   [sharded]    decode_gop_fused_sharded over every visible GPU (cuda:0
                twice on a one-card machine): the main path's 8 streams x 2
@@ -158,7 +162,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from mobiclipdecoder_tpu_torch.runtime.transcode import width_stride
+from mobiclipdecoder_tpu_torch.runtime.transcode import (CHUNK_FRAMES,
+                                                       width_stride)
 
 W, H = 256, 192
 B, F = 8, 24
@@ -172,6 +177,9 @@ WF_FRAMES = 4                       # [wavefront] streams at 400x240, 640x480
 ENC = dict(quantizer=0x14, gop=4, refs=2, me_range=6)   # [encode]
 ENC_FRAMES = 3
 IMA_CHANNELS, IMA_SAMPLES = 64, 32768     # [audio]: 1 s at 32768 Hz
+# [audio]: K9's rows on the transcoder's path, one launch per 16 frames:
+# DS (2-4 runs of 16 packets of 256 nibbles), Moflex (30-32 channel blocks)
+IMA_CHUNK_SHAPES = ((4, 4096), (32, 256))
 FA_CHANNELS, FA_PACKETS = 16, 50
 FA_CORPUS, FA_CORPUS_ROUNDS = 256, 4      # [audio]: a corpus job's streams
 SAD_RANGE, SAD_REFS = 16, 5               # the encoder's defaults
@@ -1009,10 +1017,11 @@ def cli(argv) -> dict:
 
 
 def transcode_case(tmp: Path, name: str, blob: bytes, suffix: str,
-                   size) -> dict:
+                   size, ima_chunks: int) -> dict:
     """Decode one container of frame size ``size`` with the CLI, engine
     cuda (the default) and oracle; every output file's bytes must be
-    equal."""
+    equal, and the cuda engine must launch K9 once for each of the
+    ``ima_chunks`` chunks that carry IMA audio."""
     w, h = size
     src = tmp / f"{name}{suffix}"
     src.write_bytes(blob)
@@ -1020,8 +1029,12 @@ def transcode_case(tmp: Path, name: str, blob: bytes, suffix: str,
     st = cli(["decode", str(src), str(tmp / f"{name}_cuda")])
     launches = read_counts()
     pro = read_prologue_counts()
+    ima = read_side_counts()[2]
     if sum(launches) < 1:
         raise AssertionError(f"{name}: the cuda engine launched no kernel")
+    if ima != ima_chunks:
+        raise AssertionError(f"{name}: {ima} K9 launches for {ima_chunks} "
+                             f"chunks that carry IMA audio")
     planes = check_plane_form(name, h, width_stride(w))
     so = cli(["decode", str(src), str(tmp / f"{name}_oracle"), "--engine",
               "oracle"])
@@ -1039,7 +1052,7 @@ def transcode_case(tmp: Path, name: str, blob: bytes, suffix: str,
     if st["frames"] != so["frames"] or st["frames"] != TRANSCODE_FRAMES:
         raise AssertionError(f"{name}: {st['frames']} vs {so['frames']}")
     return {"stats": st, "oracle": so, "launches": launches,
-            "prologue": pro,
+            "prologue": pro, "ima_launches": ima,
             "planes": planes, "src": src, "oracle_bytes": outs["oracle"],
             "files": {k: len(v) for k, v in outs["cuda"].items()}}
 
@@ -1467,12 +1480,14 @@ def fastaudio_work(B: int, N: int) -> dict:
                        36 * B * N), "serial_steps": N}
 
 
-def ima_work(M: int, N: int) -> dict:
+def ima_work(M: int, N: int, lengths: bool = False) -> dict:
     """What K9 must do for M rows of N nibbles: nibbles read and samples
-    written (int32), the two states and the 97 table entries read once;
-    two clamped adds per nibble (the two chains), one operation each at
-    least."""
-    return roofline(4 * (2 * M * N + 2 * M + 97), 2 * M * N)
+    written (int32), the two states and the 97 table entries read once
+    (with ``lengths``, each row's length read and its two final states
+    written too); two clamped adds per nibble (the two chains), one
+    operation each at least."""
+    return roofline(4 * (2 * M * N + (5 if lengths else 2) * M + 97),
+                    2 * M * N)
 
 
 def sad_planes(size):
@@ -1561,6 +1576,22 @@ def ima_cases() -> list:
     return out
 
 
+def ima_chunk_case(M: int, N: int, seed: int) -> list[np.ndarray]:
+    """[nibbles (M, N), index0, last0, lengths], int32, as the transcoder
+    hands them to K9: rows of their own lengths (none, odd, whole, the rest
+    random), zero nibbles after each; starts at the step table's ends and
+    at the sample clamps."""
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(N // 2, N + 1, M)
+    lengths[:3] = [0, 2 * (N // 4) + 1, N]
+    nib = rng.integers(0, 16, (M, N))
+    nib[np.arange(N)[None, :] >= lengths[:, None]] = 0
+    index0 = rng.integers(0, 89, M)
+    last0 = rng.integers(-32768, 32768, M)
+    index0[:2], last0[:2] = (0, 88), (-32768, 32767)
+    return [a.astype(np.int32) for a in (nib, index0, last0, lengths)]
+
+
 def nibbles_on_card(body: np.ndarray) -> torch.Tensor:
     """(C, L) uint8 packet bytes -> (C, 2L) int32 nibbles on the card, low
     first (decode_packets' order)."""
@@ -1610,13 +1641,36 @@ def audio_kernel_check(smi) -> dict:
             res["ima"].update(shape=f"{IMA_CHANNELS}x{IMA_SAMPLES}",
                               ms=ms["k9"], plain_ms=ms["plain"],
                               **ima_work(IMA_CHANNELS, IMA_SAMPLES))
+    res["ima"]["chunk_shapes"] = {}
+    for M, N in IMA_CHUNK_SHAPES:
+        args = [torch.from_numpy(a).cuda()
+                for a in ima_chunk_case(M, N, 23 + M)]
+        got = ak.ima_scan(*args)
+        err = max(max_err(a, b) for a, b in
+                  zip(got, decode_nibbles_plain(*args)))
+        if err != 0:
+            raise AssertionError(f"K9 {M}x{N} with lengths: max abs err "
+                                 f"{err} (samples, final index and last) "
+                                 f"against the plain version")
+        ms = timed_turns({"k9": lambda: ak.ima_scan(*args),
+                          "plain": lambda: decode_nibbles_plain(*args)})
+        res["ima"]["cases"][f"lengths-{M}x{N}"] = err
+        res["ima"]["chunk_shapes"][f"{M}x{N}"] = {
+            "ms": ms["k9"], "plain_ms": ms["plain"],
+            **ima_work(M, N, lengths=True)}
     k9 = res["ima"]
     k9["max_abs_err"] = max(k9["cases"].values())
     log(f"[audio] K9 == the plain version on the card, {k9['shape']} "
         f"({', '.join(k9['cases'])}): K9 {k9['ms']:.4f} ms vs "
         f"plain {k9['plain_ms']:.3f} ms (median of 20 in turns, behind the "
         f"spin); bound {k9['bound_ms'] * 1e3:.2f} us ({k9['bound_by']}), "
-        f"K9/bound {k9['ms'] / k9['bound_ms']:.1f}x | {smi}")
+        f"K9/bound {k9['ms'] / k9['bound_ms']:.1f}x; the transcoder's "
+        f"shapes with lengths (samples and final states exact): "
+        + ", ".join(f"{k} K9 {v['ms'] * 1e3:.2f} us vs plain "
+                    f"{v['plain_ms']:.3f} ms, bound "
+                    f"{v['bound_ms'] * 1e3:.3f} us ({v['bound_by']})"
+                    for k, v in k9["chunk_shapes"].items())
+        + f" | {smi}")
     rng = np.random.default_rng(22)
     decs = [FastAudioDecoder() for _ in range(FA_CORPUS)]
     state_k = [torch.zeros((FA_CORPUS, 8), dtype=torch.int32).cuda(),
@@ -2719,25 +2773,29 @@ def main(argv=None) -> int:
     with phase("transcode"):
         tmp = Path(trans_dir.name)
         t0 = time.perf_counter()
+        # every MODS frame carries IMA, every Moflex frame but the first
+        # (its audio chunk follows it): one K9 launch per 16-frame chunk
+        chunks = -(-TRANSCODE_FRAMES // CHUNK_FRAMES)
         cases = (
             ("mods_256x192", mods_container(TRANSCODE_FRAMES, 11, (0, 10)),
-             ".mods", (W, H)),
+             ".mods", (W, H), chunks),
             ("moflex_400x240", moflex_container(TRANSCODE_FRAMES, 12,
                                                 WIDE[0]), ".moflex",
-             WIDE[0]),
+             WIDE[0], chunks),
             ("moc5_640x480", moc5_container(TRANSCODE_FRAMES, 13, WIDE[1]),
-             ".moc5", WIDE[1]))
+             ".moc5", WIDE[1], 0))
         log(f"[transcode] synthesized 3 containers x {TRANSCODE_FRAMES} "
             f"frames in {time.perf_counter() - t0:.1f} s")
-        for cname, blob, suffix, size in cases:
-            r = transcode_case(tmp, cname, blob, suffix, size)
+        for cname, blob, suffix, size, ima_chunks in cases:
+            r = transcode_case(tmp, cname, blob, suffix, size, ima_chunks)
             trans[cname] = r
             log(f"[transcode] {cname}: decode --engine cuda -> "
                 f"{r['files']} bytes, equal to --engine oracle; "
                 f"{r['stats']['frames']} frames at {r['stats']['fps']} "
                 f"frames/s (oracle {r['oracle']['fps']} frames/s); launches "
                 f"whole-GOP {r['launches'][0]}, single-frame "
-                f"{r['launches'][1]}; plane in shared / global memory "
+                f"{r['launches'][1]}, K9 {r['ima_launches']}; plane in "
+                f"shared / global memory "
                 f"{r['planes'][0]} / {r['planes'][1]} | {smi}")
 
     # 10. the corpus worker: 8 streams per launch == oracle worker
@@ -2985,6 +3043,9 @@ def main(argv=None) -> int:
                    for k in ("ms", "plain_ms", "bound_ms")},
         "batch_decoder": fa["batch_decoder"]})
     ima = audio["ima"]
+    ima["launches"].update(
+        transcode_mods=trans["mods_256x192"]["ima_launches"],
+        transcode_moflex=trans["moflex_400x240"]["ima_launches"])
     kernels.append({
         "name": "ima_scan", "route": "cuda",
         "source": "mobiclipdecoder_tpu_torch/csrc/audio.cu",
@@ -2995,7 +3056,10 @@ def main(argv=None) -> int:
         **{k: ima[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
         "library_ms": None, "plain_on": "card",
         "plain": "decode_nibbles_plain", "shape": ima["shape"],
-        "cases": list(ima["cases"])})
+        "cases": list(ima["cases"]),
+        "transcode_shapes": {k: {key: v[key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by")}
+            for k, v in ima["chunk_shapes"].items()}})
     for kern in kernels:
         if min(kern["launches_by_path"].values()) < 1:
             raise AssertionError(f"{kern['name']} {kern.get('geometry')}: "

@@ -29,10 +29,12 @@ struct MobiBarrier {
 
 __global__ void __launch_bounds__(MOBI_IMA_NT)
     mobi_ima_scan_kernel(const int32_t* nibbles, const int32_t* index0, const int32_t* last0,
-                         const int32_t* tables, int32_t* out, long long N) {
+                         const int32_t* tables, const int32_t* lengths, int32_t* out,
+                         int32_t* index_out, int32_t* last_out, long long N) {
   __shared__ MobiImaShared sh;
   const int t = (int)threadIdx.x;
-  mobi_ima_row(nibbles, index0, last0, tables, out, blockIdx.x, N, t, t + 1, sh, MobiBarrier{});
+  mobi_ima_row(nibbles, index0, last0, tables, lengths, out, index_out, last_out, blockIdx.x, N, t,
+               t + 1, sh, MobiBarrier{});
 }
 
 // Each launcher enqueues one kernel on `stream`, allocates nothing and
@@ -64,14 +66,19 @@ extern "C" int mobi_fastaudio_synth_launch(const int32_t* excit, const int32_t* 
 }
 
 // K9: nibbles (M, N), index0 (M,), last0 (M,), tables (the index table's 8
-// entries, then the step table's 89) -> out (M, N).
+// entries, then the step table's 89) -> out (M, N); with index_out and
+// last_out (M,) not null, each row's state after its first lengths[row]
+// nibbles (all N where lengths is null) too.
 extern "C" int mobi_ima_scan_launch(const int32_t* nibbles, const int32_t* index0,
-                                    const int32_t* last0, const int32_t* tables, int32_t* out,
-                                    long long M, long long N, int device, void* stream) {
+                                    const int32_t* last0, const int32_t* tables,
+                                    const int32_t* lengths, int32_t* out, int32_t* index_out,
+                                    int32_t* last_out, long long M, long long N, int device,
+                                    void* stream) {
   const int rc = mobi_check_device(device);
   if (rc != 0) return rc;
-  if (M < 1 || M > 0x7FFFFFFFLL || N < 1) return (int)cudaErrorInvalidValue;
+  if (M < 1 || M > 0x7FFFFFFFLL || N < 1 || (index_out == nullptr) != (last_out == nullptr))
+    return (int)cudaErrorInvalidValue;
   mobi_ima_scan_kernel<<<(unsigned)M, MOBI_IMA_NT, 0, (cudaStream_t)stream>>>(
-      nibbles, index0, last0, tables, out, N);
+      nibbles, index0, last0, tables, lengths, out, index_out, last_out, N);
   return (int)cudaGetLastError();
 }

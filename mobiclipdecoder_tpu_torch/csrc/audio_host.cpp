@@ -18,9 +18,11 @@ extern "C" void mobi_fastaudio_synth_host(const int32_t* excit, const int32_t* c
 
 // K9's operands (see audio.cu).
 extern "C" void mobi_ima_scan_host(const int32_t* nibbles, const int32_t* index0,
-                                   const int32_t* last0, const int32_t* tables, int32_t* out,
-                                   long long M, long long N) {
+                                   const int32_t* last0, const int32_t* tables,
+                                   const int32_t* lengths, int32_t* out, int32_t* index_out,
+                                   int32_t* last_out, long long M, long long N) {
   std::unique_ptr<MobiImaShared> sh(new MobiImaShared());
   for (long long row = 0; row < M; ++row)
-    mobi_ima_row(nibbles, index0, last0, tables, out, row, N, 0, MOBI_IMA_NT, *sh, [] {});
+    mobi_ima_row(nibbles, index0, last0, tables, lengths, out, index_out, last_out, row, N, 0,
+                 MOBI_IMA_NT, *sh, [] {});
 }

@@ -36,7 +36,11 @@
 // 32767); a second scan gives the starting sample, and a last replay writes
 // the samples.  The diffs are recomputed, so nothing but the output is
 // written.  The scan runs as phases of "each thread t" separated by
-// barriers, so the host build runs the very same scan tree.
+// barriers, so the host build runs the very same scan tree.  Given each
+// row's length n, the thread that owns nibble n - 1 also writes the state
+// after it (thread 0 the start where n is 0): the transcoder pads the
+// ragged rows of a chunk's packets to one width and carries each row's own
+// state into the next chunk.
 //   Exactness: clamped-add composition is exact and associative, so any scan
 // order equals the sequential decoder as long as no partial sum of a wraps
 // in int32.  The largest |diff| is 61,436, so rows up to 34,952 nibbles
@@ -167,11 +171,18 @@ MOBI_AU_HD int mobi_ima_block_scan(MobiImaShared& sh, int p, int t0, int t1, Syn
 // index table, then the step table) -> out (M, N).  Thread t owns nibbles
 // [t * seg, (t + 1) * seg) of the row; threads past the row's end own none
 // and stand after every thread that does, so their maps reach no result.
+// Where index_out is not null, also the row's state after its first n
+// nibbles, n = lengths[row] clamped to [0, N] (N where lengths is null):
+// the step index into index_out (M,) and the sample into last_out (M,), so
+// that a caller that padded ragged rows can carry each one's state on.
 template <class Sync>
 MOBI_AU_HD void mobi_ima_row(const int32_t* nibbles, const int32_t* index0, const int32_t* last0,
-                             const int32_t* tables, int32_t* out, long long row, long long N,
+                             const int32_t* tables, const int32_t* lengths, int32_t* out,
+                             int32_t* index_out, int32_t* last_out, long long row, long long N,
                              int t0, int t1, MobiImaShared& sh, Sync sync) {
   const long long seg = mobi_ima_seg(N);
+  long long n = N;
+  if (lengths != nullptr) n = lengths[row] < 0 ? 0 : (lengths[row] < N ? lengths[row] : N);
   const int32_t* nib = nibbles + row * N;
   int32_t* dst = out + row * N;
   for (int t = t0; t < t1; ++t)
@@ -217,11 +228,19 @@ MOBI_AU_HD void mobi_ima_row(const int32_t* nibbles, const int32_t* index0, cons
     const long long k0 = t * seg, k1 = k0 + seg < N ? k0 + seg : N;
     int32_t s = t == 0 ? last0[row] : mobi_ima_apply(sh.scan[p2][t - 1], last0[row]);
     int32_t idx = sh.idx0[t];
+    if (index_out != nullptr && t == 0 && n == 0) {
+      index_out[row] = idx;
+      last_out[row] = s;
+    }
     for (long long k = k0; k < k1; ++k) {
       const int32_t v = nib[k];
       s = mobi_clamp(s + mobi_ima_diff(sh.step_t, idx, v), -32768, 32767);
       idx = mobi_clamp(idx + sh.idx_t[v & 7], 0, 88);
       dst[k] = s;
+      if (index_out != nullptr && k == n - 1) {
+        index_out[row] = idx;
+        last_out[row] = s;
+      }
     }
   }
 }

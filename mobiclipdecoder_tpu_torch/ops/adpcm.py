@@ -58,23 +58,27 @@ def _inclusive_scan(f):
 
 
 def decode_nibbles(nibbles: torch.Tensor, index0: torch.Tensor,
-                   last0: torch.Tensor) -> torch.Tensor:
+                   last0: torch.Tensor, lengths: torch.Tensor | None = None):
     """Decode a (..., N) int32 nibble tensor given initial (index, last) of
     shape (...).  Returns int32 samples of the same shape, on the nibbles'
     device.  Vectorizes over any leading batch axes (channels, packets,
-    streams).
+    streams).  Given lengths (...), returns (samples, index, last): also
+    each row's step index and sample after its first lengths nibbles
+    (clamped to [0, N]), the state a decoder carries on from a row that
+    was padded to N.
 
     On CUDA tensors one launch of K9, which takes contiguous tensors or
     raises; on CPU tensors the plain version; any other device raises."""
     if nibbles.device.type == "cpu":
-        return decode_nibbles_plain(nibbles, index0, last0)
+        return decode_nibbles_plain(nibbles, index0, last0, lengths)
     if nibbles.device.type != "cuda":
         raise ValueError(f"no IMA scans for device {nibbles.device}")
-    return audio_kernels.ima_scan(nibbles, index0, last0)
+    return audio_kernels.ima_scan(nibbles, index0, last0, lengths)
 
 
 def decode_nibbles_plain(nibbles: torch.Tensor, index0: torch.Tensor,
-                         last0: torch.Tensor) -> torch.Tensor:
+                         last0: torch.Tensor,
+                         lengths: torch.Tensor | None = None):
     """``decode_nibbles`` in plain torch, on whatever device its inputs lie
     on: the two log-step scans."""
     dev = nibbles.device
@@ -98,7 +102,16 @@ def decode_nibbles_plain(nibbles: torch.Tensor, index0: torch.Tensor,
     lo2 = torch.full_like(d, -32768)
     hi2 = torch.full_like(d, 32767)
     sa, slo, shi = _inclusive_scan((d, lo2, hi2))
-    return torch.clamp(last0[..., None] + sa, slo, shi)
+    samples = torch.clamp(last0[..., None] + sa, slo, shi)
+    if lengths is None:
+        return samples
+    if nibbles.shape[-1] == 0:      # no nibble taken: the start state
+        return samples, index0.clone(), last0.clone()
+    n = torch.clamp(lengths, 0, nibbles.shape[-1]).long()
+    at = (n - 1).clamp(min=0)[..., None]
+    return (samples,
+            torch.where(n > 0, idx_incl.gather(-1, at)[..., 0], index0),
+            torch.where(n > 0, samples.gather(-1, at)[..., 0], last0))
 
 
 def decode_packets(packets: np.ndarray, index0: np.ndarray,

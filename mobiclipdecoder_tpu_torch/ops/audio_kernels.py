@@ -13,7 +13,9 @@ use:
 * K9 ``ima_scan``: the IMA ADPCM step-index and sample chains of M rows,
   one block per row: each thread composes its segment's clamped-add maps,
   a block scan gives each segment's starting state, and the segment is
-  replayed.
+  replayed.  Given each row's length, it also returns the state (step
+  index, sample) after that many nibbles, so that rows padded to one width
+  can carry their own state on.
 
 Each launch function takes CUDA tensors only, launches its kernel on the
 current stream of the tensors' device, and raises if the launch is refused.
@@ -49,7 +51,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _FA_ARGS = [_P] * 7 + [_L, _L]
-_IMA_ARGS = [_P] * 5 + [_L, _L]
+_IMA_ARGS = [_P] * 8 + [_L, _L]
 
 # the index table, then the step table, as K9 reads them
 IMA_TABLES = np.concatenate([INDEX_TABLE, STEP_TABLE]).astype(np.int32)
@@ -92,17 +94,19 @@ def synth_sizes(excit, coef, hist0, r9_0) -> tuple[int, int]:
     return B, N
 
 
-def scan_sizes(nibbles, index0, last0) -> tuple[int, int]:
+def scan_sizes(nibbles, index0, last0, lengths=None) -> tuple[int, int]:
     """(M, N) of K9's operands, the leading axes of nibbles (..., N)
-    flattened to M rows, or ValueError unless index0 and last0 have
-    nibbles' leading shape."""
+    flattened to M rows, or ValueError unless index0, last0 and any
+    lengths have nibbles' leading shape."""
     lead = tuple(nibbles.shape[:-1])
-    if (nibbles.ndim < 1 or tuple(index0.shape) != lead
-            or tuple(last0.shape) != lead):
+    states = (index0, last0) + (() if lengths is None else (lengths,))
+    if nibbles.ndim < 1 or any(tuple(a.shape) != lead for a in states):
         raise ValueError(f"nibbles {tuple(nibbles.shape)}, index0 "
                          f"{tuple(index0.shape)}, last0 "
-                         f"{tuple(last0.shape)}: expected (..., N) and the "
-                         f"leading shape (...) twice")
+                         f"{tuple(last0.shape)}, lengths "
+                         f"{None if lengths is None else tuple(lengths.shape)}"
+                         f": expected (..., N) and the leading shape (...) "
+                         f"for each of the others")
     return int(np.prod(lead, dtype=np.int64)), nibbles.shape[-1]
 
 
@@ -132,22 +136,38 @@ def fastaudio_synth(excit: torch.Tensor, coef: torch.Tensor,
 
 
 def ima_scan(nibbles: torch.Tensor, index0: torch.Tensor,
-             last0: torch.Tensor) -> torch.Tensor:
+             last0: torch.Tensor, lengths: torch.Tensor | None = None):
     """K9: nibbles (..., N), index0 (...), last0 (...), contiguous int32
     CUDA tensors on one device -> the (..., N) int32 samples of
-    ``decode_nibbles`` on the tensors' card.  No launch where there is
-    nothing to decode (N or the leading size 0)."""
+    ``decode_nibbles`` on the tensors' card.  Given lengths (...), int32 on
+    the same card, -> (samples, index, last): also each row's step index
+    and sample after its first lengths nibbles (clamped to [0, N]).  No
+    launch where there is nothing to decode (N or the leading size 0)."""
     global ima_launches
-    dev = on_one_card(nibbles=nibbles, index0=index0, last0=last0)
-    M, N = scan_sizes(nibbles, index0, last0)
+    ins = {"nibbles": nibbles, "index0": index0, "last0": last0}
+    if lengths is not None:
+        ins["lengths"] = lengths
+    dev = on_one_card(**ins)
+    M, N = scan_sizes(nibbles, index0, last0, lengths)
     out = torch.empty_like(nibbles)
     if M == 0 or N == 0:
-        return out
+        # no nibble taken: each row's state is its start
+        return out if lengths is None else (out, index0.clone(),
+                                            last0.clone())
+    final = (None, None) if lengths is None else (torch.empty_like(index0),
+                                                  torch.empty_like(last0))
     launch(_load().mobi_ima_scan_launch, dev, nibbles.data_ptr(),
            index0.data_ptr(), last0.data_ptr(), _tables(dev).data_ptr(),
-           out.data_ptr(), M, N)
+           _ptr(lengths), out.data_ptr(), *map(_ptr, final), M, N)
     ima_launches += 1
-    return out
+    return out if lengths is None else (out, *final)
+
+
+def _ptr(t) -> int | None:
+    """A tensor's or an array's address, None (NULL) for None."""
+    if t is None:
+        return None
+    return t.data_ptr() if isinstance(t, torch.Tensor) else t.ctypes.data
 
 
 def _np32(a) -> np.ndarray:
@@ -169,14 +189,20 @@ def fastaudio_synth_host(excit, coef, hist0, r9_0) -> tuple:
     return pcm, hist, r9
 
 
-def ima_scan_host(nibbles, index0, last0) -> np.ndarray:
+def ima_scan_host(nibbles, index0, last0, lengths=None):
     """K9's block code on the host (g++ build), row by row: numpy operands
-    as ``ima_scan``'s -> (..., N) int32 samples."""
+    as ``ima_scan``'s -> (..., N) int32 samples, or with lengths
+    (samples, index, last) as ``ima_scan`` gives them."""
     nibbles, index0, last0 = map(_np32, (nibbles, index0, last0))
-    M, N = scan_sizes(nibbles, index0, last0)
+    if lengths is not None:
+        lengths = _np32(lengths)
+    M, N = scan_sizes(nibbles, index0, last0, lengths)
     out = np.empty_like(nibbles)
+    final = (None, None) if lengths is None else (index0.copy(),
+                                                  last0.copy())
     if M and N:
         _load_host().mobi_ima_scan_host(
             nibbles.ctypes.data, index0.ctypes.data, last0.ctypes.data,
-            IMA_TABLES.ctypes.data, out.ctypes.data, M, N)
-    return out
+            IMA_TABLES.ctypes.data, _ptr(lengths), out.ctypes.data,
+            *map(_ptr, final), M, N)
+    return out if lengths is None else (out, *final)

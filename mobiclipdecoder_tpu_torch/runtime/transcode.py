@@ -22,27 +22,38 @@ The wavefront decoder has no ``decode_stream_chunk``, so the transcoder
 decodes it frame by frame, as the JAX package does ``"tpu-xla"``.  The JAX
 package's ``"tpu"`` and ``"tpu-xla"`` names raise ``ValueError`` here.
 
+IMA ADPCM audio (MODS codec 3, Moflex codec 1) is decoded on the video
+decoder's device: the packets of the frames one decode call emits go as
+rows, one per channel and run of packets, through one ``decode_nibbles``
+call (``ops/adpcm.py``): on a CUDA decoder one launch of K9 per chunk, on
+a CPU decoder its plain version.  The oracle engine keeps the host
+``ImaAdpcmDecoder``, the spec.
+
 Under ``torch.profiler`` the transcoder's layers record spans
 (``runtime/metrics.py`` ``span``) beside the decoder's: ``mobiclip.setup``
 (building the video decoder), ``mobiclip.demux`` (the container's parsing),
-``mobiclip.audio`` (the host audio decoders) and ``mobiclip.emit`` (each
+``mobiclip.audio`` (the audio decoders, the IMA call's copies, launch and
+wait included) and ``mobiclip.emit`` (each
 ``DecodedFrame``'s plane copies).  None encloses another layer's span and
 none is open across a ``yield``, so each stretch of host time belongs to
 one layer.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 from pathlib import Path
-from typing import Iterator
+from typing import Iterator, NamedTuple
 
 import numpy as np
+import torch
 
 from ..containers.mods import ModsDemuxer
 from ..models.audio_fastaudio import FastAudioDecoder
 from ..models.audio_ima import ImaAdpcmDecoder
 from ..models.audio_sx import SxDecoder
 from ..models.oracle_video import MobiclipVersion, OracleDecoder
+from ..ops.adpcm import decode_nibbles
 from ..ops.vmem_engine import VmemVideoDecoder
 from ..utils import rawio
 from .metrics import span
@@ -135,13 +146,159 @@ def _new_video_decoder(width: int, height: int, version: MobiclipVersion,
 CHUNK_FRAMES = 16
 
 
+def _nibbles(body: np.ndarray) -> np.ndarray:
+    """(..., L) uint8 IMA bytes -> (..., 2L) nibbles, the low one first
+    (the host decoder's order)."""
+    return np.stack([body & 0xF, body >> 4], axis=-1).reshape(
+        *body.shape[:-1], -1)
+
+
+def _decode_ima(rows: list[np.ndarray], index0, last0, device):
+    """IMA ADPCM rows of nibbles, each of its own length, with each row's
+    starting (step index, sample), in one ``decode_nibbles`` call on
+    ``device``: one copy of the rows (zero-padded to the longest) and their
+    states to the device, one copy of the samples and final states back.
+    Returns (each row's int16 samples, final index, final last); no call
+    where there is no row."""
+    M = len(rows)
+    if M == 0:
+        return [], np.empty(0, np.int32), np.empty(0, np.int32)
+    lens = np.array([len(r) for r in rows], np.int32)
+    N = int(lens.max())
+    buf = np.zeros(M * N + 3 * M, np.int32)
+    nib = buf[:M * N].reshape(M, N)
+    for r, row in enumerate(rows):
+        nib[r, :len(row)] = row
+    buf[M * N:] = np.concatenate([index0, last0, lens])
+    t = torch.from_numpy(buf).to(device)
+    samples, index, last = decode_nibbles(
+        t[:M * N].view(M, N), t[M * N:M * N + M], t[M * N + M:M * N + 2 * M],
+        t[M * N + 2 * M:])
+    host = torch.cat([samples.view(-1), index, last]).cpu().numpy()
+    pcm = host[:M * N].reshape(M, N).astype(np.int16)
+    return ([pcm[r, :n] for r, n in enumerate(lens)],
+            host[M * N:M * N + M], host[M * N + M:])
+
+
+@dataclasses.dataclass
+class _ImaRun:
+    """One MODS channel's packets from a state to the next restart (or the
+    end of a plan): one row of nibbles."""
+    index0: int
+    last0: int
+    bodies: list = dataclasses.field(default_factory=list)
+    nibbles: int = 0
+    pcm: np.ndarray | None = None
+    #: the state after the run's nibbles (its start until it is decoded)
+    final: tuple[int, int] = dataclasses.field(init=False)
+
+    def __post_init__(self):
+        self.final = (self.index0, self.last0)
+
+
+class _ModsIma:
+    """MODS IMA ADPCM on the video decoder's device.  ``plan`` takes the
+    frames about to be emitted, walks their packets as the host decoders
+    take them (channels in turn, a 4-byte state header where a channel
+    starts or restarts at a keyframe) and decodes them in one
+    ``_decode_ima`` call, a row per channel and run of packets; ``take``
+    hands each packet's channel and 256 samples out in that order, for
+    ``audio_for``'s queues.  A run that goes on past the frames starts
+    the next plan from its final state.
+
+    A packet that runs past its payload decodes the nibbles there are and
+    leaves zeros where the host decoder leaves ``np.empty``'s; where the
+    host decoder raises (a header past the payload, a step index past the
+    table), ``take`` raises the same error and planning stops."""
+
+    def __init__(self, nch: int, device):
+        self.nch, self.device = nch, device
+        #: per channel, the (index, last) its next packet starts from, or
+        #: None where that packet carries a header
+        self.state: list[tuple[int, int] | None] = [None] * nch
+        self.cur = 0
+        self.ready: collections.deque = collections.deque()
+
+    def take(self) -> tuple[int, np.ndarray]:
+        """The next packet's (channel, 256 samples)."""
+        got = self.ready.popleft()
+        if isinstance(got, Exception):
+            raise got
+        return got
+
+    def plan(self, frames) -> None:
+        """``frames``: (packet, audio packets, keyframe, audio offset) of
+        each frame whose ``audio_for`` decodes audio, in order."""
+        runs, took, open_runs = self._walk(frames)
+        live = [r for r in runs if r.nibbles]
+        pcm, index, last = _decode_ima(
+            [_nibbles(np.frombuffer(b"".join(r.bodies), np.uint8))
+             for r in live],
+            [r.index0 for r in live], [r.last0 for r in live], self.device)
+        for r, p, i, v in zip(live, pcm, index, last):
+            r.pcm, r.final = p, (int(i), int(v))
+        for c, r in enumerate(open_runs):
+            if r is not None:
+                self.state[c] = r.final
+        for t in took:
+            if isinstance(t, Exception):
+                self.ready.append(t)
+                continue
+            c, r, a, n = t
+            out = np.zeros(256, np.int16)
+            if n:
+                out[:n] = r.pcm[a:a + n]
+            self.ready.append((c, out))
+
+    def _walk(self, frames):
+        """The runs of ``frames``' packets; per packet (its channel, its
+        run, its first nibble there, its nibbles), or the host decoder's
+        error where it would raise, which ends the walk; and each
+        channel's open run."""
+        runs: list[_ImaRun] = []
+        took: list = []
+        open_runs: list[_ImaRun | None] = [None] * self.nch
+        for pkt, n_audio, is_key, off in frames:
+            if is_key:          # IMA restarts at keyframes
+                self.state = [None] * self.nch
+                open_runs = [None] * self.nch
+            for _ in range(n_audio):
+                c, self.cur = self.cur, (self.cur + 1) % self.nch
+                run = open_runs[c]
+                if run is None:
+                    start = self.state[c]
+                    if start is None:       # the decoder reads a header
+                        try:
+                            start = (
+                                int(np.frombuffer(pkt, "<i2", 1, off)[0])
+                                & 0x7F,
+                                int(np.frombuffer(pkt, "<i2", 1, off + 2)[0]))
+                        except ValueError as err:   # past the payload
+                            took.append(err)
+                            return runs, took, open_runs
+                        off += 4
+                    run = open_runs[c] = _ImaRun(*start)
+                    runs.append(run)
+                body = pkt[off:off + 128]
+                off += 128
+                if body and not run.nibbles and run.index0 > 88:
+                    took.append(IndexError(f"IMA step index {run.index0} is "
+                                           f"past the step table"))
+                    return runs, took, open_runs
+                took.append((c, run, run.nibbles, 2 * len(body)))
+                run.bodies.append(body)
+                run.nibbles += 2 * len(body)
+        return runs, took, open_runs
+
+
 def decode_mods(data: bytes, engine: str = "oracle") -> Iterator[DecodedFrame]:
     """Decode a MODS container (video + MODS-style per-frame audio packets,
     Program.cs:206-358).  Yields DecodedFrame per frame.
 
     With a chunk-capable device engine, CHUNK_FRAMES frames go through one
     fused device dispatch; the per-frame bitstream end offsets the audio
-    layer needs come from the host scanner."""
+    layer needs come from the host scanner.  The IMA packets of the frames
+    one decode call emits are decoded together (``_ModsIma``)."""
     with span("mobiclip.demux"):
         dm = ModsDemuxer(data)
     h = dm.header
@@ -160,22 +317,34 @@ def decode_mods(data: bytes, engine: str = "oracle") -> Iterator[DecodedFrame]:
     adpcm, sxd, fad, sx_init = _fresh_decoders()
     queues: list[list[np.ndarray]] = [[] for _ in range(nch)]
     state = {"cur_channel": 0, "frame_idx": 0}
+    ima = (_ModsIma(nch, dec.device) if has_audio and h.audio_codec == 3
+           and not isinstance(dec, OracleDecoder) else None)
 
-    def audio_for(pkt: bytes, n_audio: int, is_key: bool,
-                  end_off: int) -> np.ndarray | None:
-        nonlocal adpcm, sxd, fad, sx_init, queues
-        if n_audio <= 0 or not has_audio:
-            return None
+    def audio_offset(pkt: bytes, end_off: int) -> int:
         # audio starts where the video bit reader stopped, minus its
         # one-word over-read (Program.cs:250-252); TagId 'N3' quirk: +4
         off = end_off - 2
         if h.tag_id == 0x334E and len(pkt) >= 2 \
                 and (pkt[0] | (pkt[1] << 8)) & 0x8000:
             off += 4
+        return off
+
+    def plan_audio(frames) -> None:
+        """The IMA packets of the frames about to be emitted, each (rec,
+        end offset), decoded together on the video decoder's device."""
+        if ima is not None:
+            with span("mobiclip.audio"):
+                ima.plan([(pkt, n, key, audio_offset(pkt, end))
+                          for (pkt, n, key), end in frames if n > 0])
+
+    def spec_packets(pkt: bytes, n_audio: int, is_key: bool,
+                     end_off: int) -> None:
+        """A frame's audio packets through the host decoders, into
+        ``queues``."""
+        nonlocal adpcm, sxd, fad, sx_init
+        off = audio_offset(pkt, end_off)
         if is_key and h.audio_codec == 3:
-            # IMA resets at keyframes (Program.cs:255-265)
             adpcm, sxd, fad, sx_init = _fresh_decoders()
-            queues = [[] for _ in range(nch)]
         cur_channel = state["cur_channel"]
         for _ in range(n_audio):
             if h.audio_codec == 3:          # IMA ADPCM
@@ -200,6 +369,21 @@ def decode_mods(data: bytes, engine: str = "oracle") -> Iterator[DecodedFrame]:
                 off = f.offset
             cur_channel = (cur_channel + 1) % nch
         state["cur_channel"] = cur_channel
+
+    def audio_for(pkt: bytes, n_audio: int, is_key: bool,
+                  end_off: int) -> np.ndarray | None:
+        nonlocal queues
+        if n_audio <= 0 or not has_audio:
+            return None
+        if is_key and h.audio_codec == 3:
+            # IMA resets at keyframes (Program.cs:255-265)
+            queues = [[] for _ in range(nch)]
+        if ima is not None:     # IMA ADPCM: the packets _ModsIma walked
+            for _ in range(n_audio):
+                c, pcm = ima.take()
+                queues[c].append(pcm)
+        else:
+            spec_packets(pkt, n_audio, is_key, end_off)
         smallest = min((sum(len(a) for a in q) for q in queues), default=0)
         if smallest <= 0:
             return None
@@ -244,6 +428,7 @@ def decode_mods(data: bytes, engine: str = "oracle") -> Iterator[DecodedFrame]:
             yuv, offs, err = dec.decode_stream_chunk(
                 [p[0] for p in pending])
             K = yuv.shape[0]
+            plan_audio(zip(pending[:K], offs))
             for k in range(K):
                 yield emit(yuv[k][:H], yuv[k][H:], pending[k], offs[k],
                            False)
@@ -268,6 +453,8 @@ def decode_mods(data: bytes, engine: str = "oracle") -> Iterator[DecodedFrame]:
             dec.data = pkt
             dec.offset = 0
         y, uv, end_off, corrupt = _decode_contained(dec, pkt)
+        if not corrupt:
+            plan_audio([(rec, end_off)])
         yield emit(y, uv, rec, end_off, corrupt)
 
 
@@ -526,8 +713,9 @@ def decode_moflex(data: bytes, engine: str = "oracle",
     state = {"dec": None, "S": 0, "W": 0, "H": 0, "vid": video_stream,
              "idx": 0}
     out_frames: list[DecodedFrame] = []
-    pcm_pending: list[np.ndarray] = []
-    pending_v: list[tuple[bytes, np.ndarray | None]] = []
+    # audio since the last video frame: PCM, and IMA chunks not yet decoded
+    pcm_pending: list[np.ndarray | _ImaChunk] = []
+    pending_v: list[tuple[bytes, list | None]] = []
 
     def _emit(y, uv, pcm, corrupt) -> None:
         W, H, S = state["W"], state["H"], state["S"]
@@ -551,11 +739,13 @@ def decode_moflex(data: bytes, engine: str = "oracle",
             yuv, _offs, err = dec.decode_stream_chunk(
                 [p for p, _ in batch])
             K = yuv.shape[0]
+            pcm = _frame_pcm([a for _, a in batch[:K + (err is not None)]],
+                             dec)
             for k in range(K):
-                _emit(yuv[k][:H], yuv[k][H:], batch[k][1], False)
+                _emit(yuv[k][:H], yuv[k][H:], pcm[k], False)
             if err is not None:
                 prev = dec.ring_frame_np()[8:8 + H + H // 2, 8:8 + S]
-                _emit(prev[:H], prev[H:], batch[K][1], True)
+                _emit(prev[:H], prev[H:], pcm[K], True)
                 del pending_v[:K + 1]
             else:
                 del pending_v[:len(batch)]
@@ -575,17 +765,17 @@ def decode_moflex(data: bytes, engine: str = "oracle",
                     engine)
                 state["S"] = state["dec"].stride
             dec = state["dec"]
-            pcm = (np.concatenate(pcm_pending) if pcm_pending else None)
+            audio = list(pcm_pending) if pcm_pending else None
             pcm_pending.clear()
             if hasattr(dec, "decode_stream_chunk"):
-                pending_v.append((payload, pcm))
+                pending_v.append((payload, audio))
                 _flush_chunk(final=False)
                 return
             if isinstance(dec, OracleDecoder):
                 dec.data = payload
                 dec.offset = 0
             y, uv, _end, corrupt = _decode_contained(dec, payload)
-            _emit(y, uv, pcm, corrupt)
+            _emit(y, uv, _frame_pcm([audio], dec)[0], corrupt)
         elif isinstance(chunk, AudioStream):
             try:
                 with span("mobiclip.audio"):
@@ -595,7 +785,10 @@ def decode_moflex(data: bytes, engine: str = "oracle",
 
     def _decode_audio_chunk(chunk, payload: bytes) -> None:
             ch = chunk.channels
-            if chunk.codec_id == 1:  # IMA ADPCM (Form1.cs:601-630)
+            if chunk.codec_id == 1 and engine != "oracle":
+                # IMA ADPCM, decoded with the frame it is attached to
+                pcm_pending.append(_ImaChunk.parse(payload, ch))
+            elif chunk.codec_id == 1:  # IMA ADPCM (Form1.cs:601-630)
                 decs = [ImaAdpcmDecoder() for _ in range(ch)]
                 for i in range(ch):
                     decs[i].decode(payload, 4 * i, 4)
@@ -657,6 +850,55 @@ def decode_moflex(data: bytes, engine: str = "oracle",
         for fr in out_frames:
             yield fr
         out_frames.clear()
+
+
+class _ImaChunk(NamedTuple):
+    """A Moflex IMA ADPCM audio chunk (Form1.cs:601-630), parsed when it
+    arrives and decoded with the video frames it is attached to: each
+    channel's 4-byte state, then 128-byte blocks, the channels in turn,
+    taken while more than one block per channel remains."""
+    index0: np.ndarray      # (ch,) int32
+    last0: np.ndarray       # (ch,) int32
+    nibbles: np.ndarray     # (ch, blocks * 256) uint8
+
+    @classmethod
+    def parse(cls, payload: bytes, ch: int) -> "_ImaChunk":
+        """Raises where the host decoder raises, so that the chunk is
+        dropped: a payload shorter than its headers, a step index past the
+        table where a block is decoded."""
+        if ch < 1 or len(payload) < 4 * ch:
+            raise ValueError(f"IMA chunk of {len(payload)} bytes: shorter "
+                             f"than the headers of {ch} channels")
+        head = np.frombuffer(payload, "<i2", 2 * ch).reshape(ch, 2).astype(
+            np.int32)
+        index0 = head[:, 0] & 0x7F
+        blocks = max(0, (len(payload) - 4 * ch - 1) // (128 * ch))
+        if blocks and (index0 > 88).any():
+            raise IndexError(f"IMA step index {index0.max()} is past the "
+                             f"step table")
+        body = np.frombuffer(payload, np.uint8, blocks * 128 * ch, 4 * ch)
+        return cls(index0, head[:, 1], _nibbles(
+            body.reshape(blocks, ch, 128).transpose(1, 0, 2).reshape(ch, -1)))
+
+
+def _frame_pcm(audio: list[list | None], dec) -> list[np.ndarray | None]:
+    """Each Moflex frame's PCM: its audio pieces in arrival order, joined
+    (None where it has none).  The IMA chunks among them are decoded
+    together, in one ``_decode_ima`` call on the video decoder's device."""
+    chunks = [p for a in audio if a for p in a if isinstance(p, _ImaChunk)]
+    if chunks:
+        with span("mobiclip.audio"):
+            rows = [(c, i) for c in chunks if c.nibbles.shape[1]
+                    for i in range(len(c.index0))]
+            pcm = iter(_decode_ima([c.nibbles[i] for c, i in rows],
+                                   [c.index0[i] for c, i in rows],
+                                   [c.last0[i] for c, i in rows],
+                                   dec.device)[0])
+            done = iter([rawio.interleave_channels(
+                [next(pcm) if c.nibbles.shape[1] else np.empty(0, np.int16)
+                 for _ in c.index0]) for c in chunks])
+    return [np.concatenate([next(done) if isinstance(p, _ImaChunk) else p
+                            for p in a]) if a else None for a in audio]
 
 
 def _chunked_video_frames(dec, packets, W: int, H: int,

@@ -24,6 +24,29 @@ def _host_ima(body: np.ndarray, index0: int, last0: int) -> np.ndarray:
     return dec.decode(body.tobytes(), 0, body.size)
 
 
+def _host_state(body: np.ndarray, index0: int, last0: int, n: int):
+    """The host decoder's (index, last) after the first n (even) nibbles
+    of packet bytes ``body``."""
+    dec = ImaAdpcmDecoder()
+    dec.is_init = True
+    dec.index, dec.last = int(index0), int(last0)
+    dec.decode(body[:n // 2].tobytes(), 0, n // 2)
+    return dec.index, dec.last
+
+
+def _ragged(rng, rows: int, n: int) -> np.ndarray:
+    """Even row lengths in [0, n]: row 0 whole, row 1 at n / 2 (inside
+    ``_case``'s pinned runs), the last row empty, the others drawn."""
+    lens = 2 * rng.integers(0, n // 2 + 1, rows)
+    lens[0], lens[1], lens[-1] = n, n // 2, 0
+    return lens.astype(np.int32)
+
+
+#: what a pinned case's state reads at the end of a row inside its run
+PINNED = {"index-floor": (0, None), "index-ceiling": (88, None),
+          "clamp-high": (None, 32767), "clamp-low": (None, -32768)}
+
+
 def _nibble_bytes(nibbles):
     n = np.asarray(nibbles, np.uint8)
     return (n[0::2] | (n[1::2] << 4)).astype(np.uint8)
@@ -77,6 +100,21 @@ def test_decode_packets_matches_jax_and_host(name):
     # one row through the scalar form: (L,) with 0-d state
     one = pad.decode_packets(body[0], index0[0], last0[0], device="cpu")
     np.testing.assert_array_equal(one, port[0])
+    # ragged rows padded to one width: the samples are those of the whole
+    # rows, the state the host decoder's after each row's own nibbles
+    lens = _ragged(rng, 8, 2 * body.shape[1])
+    b = body.astype(np.int32)
+    nib = np.stack([b & 0xF, b >> 4], axis=-1).reshape(8, -1)
+    samples, index, last = pad.decode_nibbles_plain(
+        *(torch.from_numpy(a) for a in (nib, index0, last0, lens)))
+    np.testing.assert_array_equal(samples.numpy(), port)
+    for r in range(8):
+        assert (int(index[r]), int(last[r])) == _host_state(
+            body[r], index0[r], last0[r], lens[r]), r
+    assert (int(index[-1]), int(last[-1])) == (index0[-1], last0[-1])
+    want_index, want_last = PINNED.get(name, (None, None))
+    assert want_index in (None, int(index[1]))
+    assert want_last in (None, int(last[1]))
 
 
 def test_decode_nibbles_one_long_row_equals_packet_chain():

@@ -8,7 +8,9 @@ port's plain versions, on the CPU with inputs drawn from numpy seeds:
 * K9, the IMA ADPCM scans (K9's block with its threads taken in turn,
   the card's scan tree): the pinned cases of test_torch_audio.py, leading
   batch axes, rows of 1 and of odd length, and one 32,768-nibble row
-  driven to the largest diffs against the sequential ImaAdpcmDecoder.
+  driven to the largest diffs against the sequential ImaAdpcmDecoder;
+  with ragged rows padded to one width, each row's final state against
+  the host decoder's after the row's own nibbles.
 
 Exact equality throughout.  Also the wrappers' CPU path, their input
 checks and their failed build.  The kernels themselves run on the card
@@ -29,7 +31,8 @@ from mobiclipdecoder_tpu_torch.ops import audio_kernels as ak
 from mobiclipdecoder_tpu_torch.ops import audio_lpc as plpc
 
 sys.path.insert(0, str(Path(__file__).parent))
-from test_torch_audio import _case, _host_ima  # noqa: E402
+from test_torch_audio import (PINNED, _case, _host_ima,  # noqa: E402
+                              _host_state, _ragged)
 
 
 def _synth_state(seed, B, N):
@@ -137,16 +140,23 @@ def _nibbles(body: np.ndarray) -> np.ndarray:
     return np.stack([b & 0xF, b >> 4], axis=-1).reshape(*b.shape[:-1], -1)
 
 
-def _three_ways(nib, index0, last0):
+def _three_ways(nib, index0, last0, lengths=None):
     """K9's host build, the JAX package's decode_nibbles and the plain
     version on the same inputs, asserted equal; returns the host build's
-    samples."""
-    got = ak.ima_scan_host(nib, index0, last0)
-    np.testing.assert_array_equal(got, np.asarray(jad.decode_nibbles(
+    samples.  Given lengths, the final states of the host build and the
+    plain version too, asserted equal; returns (samples, index, last)."""
+    got = ak.ima_scan_host(nib, index0, last0, lengths)
+    samples = got if lengths is None else got[0]
+    np.testing.assert_array_equal(samples, np.asarray(jad.decode_nibbles(
         jnp.asarray(nib), jnp.asarray(index0), jnp.asarray(last0))))
-    np.testing.assert_array_equal(got, pad.decode_nibbles_plain(
-        *(torch.from_numpy(np.asarray(a, np.int32))
-          for a in (nib, index0, last0))).numpy())
+    np.testing.assert_array_equal(samples, ak.ima_scan_host(
+        nib, index0, last0))
+    ins = (nib, index0, last0) + (() if lengths is None else (lengths,))
+    plain = pad.decode_nibbles_plain(
+        *(torch.from_numpy(np.asarray(a, np.int32)) for a in ins))
+    for g, p in zip((got,) if lengths is None else got,
+                    (plain,) if lengths is None else plain):
+        np.testing.assert_array_equal(g, p.numpy())
     return got
 
 
@@ -155,24 +165,37 @@ def _three_ways(nib, index0, last0):
 def test_host_scan_matches_jax_plain_and_host_decoder(name):
     rng = np.random.default_rng(sum(map(ord, name)))
     body, index0, last0 = _case(name, rng)
-    got = _three_ways(_nibbles(body), index0, last0)
+    lens = _ragged(rng, body.shape[0], 2 * body.shape[1])
+    got, index, last = _three_ways(_nibbles(body), index0, last0, lens)
     for r in range(body.shape[0]):
         np.testing.assert_array_equal(
             got[r], _host_ima(body[r], index0[r], last0[r]), err_msg=str(r))
+        assert (index[r], last[r]) == _host_state(
+            body[r], index0[r], last0[r], lens[r]), r
     if name.startswith("clamp"):
         assert np.abs(got).max() >= 32767
+    want_index, want_last = PINNED.get(name, (None, None))
+    assert want_index in (None, index[1]) and want_last in (None, last[1])
 
 
 @pytest.mark.parametrize("N", [1, 2, 255, 257, 1001])
 def test_host_scan_batch_axes_and_row_lengths(N):
     """(2, 3, N) nibbles with (2, 3) states: rows shorter than, equal to
-    and not a multiple of K9's thread count (some threads own nothing)."""
+    and not a multiple of K9's thread count (some threads own nothing);
+    the final states after ragged lengths, odd ones, 0, N and past N
+    among them."""
     rng = np.random.default_rng(N)
     nib = rng.integers(0, 16, (2, 3, N)).astype(np.int32)
     index0 = rng.integers(0, 89, (2, 3)).astype(np.int32)
     last0 = rng.integers(-32768, 32768, (2, 3)).astype(np.int32)
     got = _three_ways(nib, index0, last0)
     assert got.shape == (2, 3, N)
+    lens = rng.integers(0, N + 1, (2, 3)).astype(np.int32)
+    lens[0, :3] = [0, N, N + 7]
+    _s, index, last = _three_ways(nib, index0, last0, lens)
+    assert (index[0, 0], last[0, 0]) == (index0[0, 0], last0[0, 0])
+    for k in (1, 2):
+        assert last[0, k] == _s[0, k, -1]
 
 
 def test_host_scan_long_row_at_the_largest_diffs():
@@ -233,6 +256,11 @@ def test_wrappers_check_inputs_and_never_fall_back():
         ak.synth_sizes(fa[0], fa[1][:, :7], fa[2], fa[3])
     with pytest.raises(ValueError, match="expected"):
         ak.scan_sizes(nib, st[:1], st)
+    with pytest.raises(ValueError, match="expected"):
+        ak.scan_sizes(nib, st, st, st[:1])
+    with pytest.raises(ValueError, match="lengths"):
+        ak.ima_scan_host(nib.numpy(), st.numpy(), st.numpy(),
+                         st.numpy()[None])
     with pytest.raises(ValueError, match="expected"):
         ak.ima_scan_host(nib.numpy(), st.numpy(), st.numpy()[None])
     assert (ak.fastaudio_launches, ak.ima_launches) == before

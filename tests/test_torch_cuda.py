@@ -229,6 +229,51 @@ def test_cuda_sad_volume_and_audio_match_cpu(cuda):
 
 
 @pytest.mark.cuda
+def test_cuda_ima_final_state_matches_plain(cuda):
+    """K9 given each row's length: the samples of the whole rows and the
+    state after each row's own nibbles (none, odd, all, past the end) ==
+    the plain version's, one launch."""
+    from mobiclipdecoder_tpu_torch.ops import audio_kernels
+    from mobiclipdecoder_tpu_torch.ops.adpcm import (decode_nibbles,
+                                                     decode_nibbles_plain)
+    rng = np.random.default_rng(6)
+    M, N = 12, 4096
+    args = [rng.integers(0, 16, (M, N)), rng.integers(0, 89, M),
+            rng.integers(-32768, 32768, M), rng.integers(0, N + 1, M)]
+    args[3][:4] = [0, 1, N, N + 3]
+    args = [torch.from_numpy(a.astype(np.int32)) for a in args]
+    before = audio_kernels.ima_launches
+    got = decode_nibbles(*(a.to(cuda) for a in args))
+    for g, p in zip(got, decode_nibbles_plain(*args)):
+        np.testing.assert_array_equal(g.cpu().numpy(), p.numpy())
+    assert audio_kernels.ima_launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("container", ["mods", "moflex"])
+def test_cuda_transcoder_audio_goes_through_k9(cuda, container):
+    """decode_mods and decode_moflex with engine="cuda" on a 48-frame file
+    (3 chunks of 16 frames, IMA in each): PCM == the oracle engine's (the
+    host ImaAdpcmDecoder), one K9 launch per chunk."""
+    from mobiclipdecoder_tpu_torch.ops import audio_kernels
+    from mobiclipdecoder_tpu_torch.runtime import transcode
+    from torch_av import moflex_ima, mods_ima
+    blob = (mods_ima(48, key_at=(0, 24, 40), seed=17)
+            if container == "mods" else moflex_ima(48, seed=19))
+    decode = getattr(transcode, f"decode_{container}")
+    before = audio_kernels.ima_launches
+    got = list(decode(blob, engine="cuda"))
+    assert audio_kernels.ima_launches - before == 48 // transcode.CHUNK_FRAMES
+    want = list(decode(blob, engine="oracle"))
+    assert len(got) == len(want) == 48
+    assert sum(f.pcm is not None for f in got) >= 47
+    for k, (a, b) in enumerate(zip(got, want)):
+        assert (a.pcm is None) == (b.pcm is None), k
+        if a.pcm is not None:
+            np.testing.assert_array_equal(a.pcm, b.pcm, err_msg=f"frame {k}")
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("ndev", [1, 2])
 def test_cuda_sharded_decode_matches_unsharded(cuda, ndev):
     """The whole-GOP executor and the wavefront engine with 4 streams
