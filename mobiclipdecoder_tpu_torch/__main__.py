@@ -54,7 +54,8 @@ def main(argv=None) -> int:
     b = sub.add_parser("batch", help="corpus decode: shard files into GOPs"
                                      " and decode them lockstep-batched; "
                                      "idempotent (ledger-resumable)")
-    b.add_argument("inputs", nargs="+", help="MODS/Moflex container files")
+    b.add_argument("inputs", nargs="+",
+                   help="MODS/Moflex/MOC5 container files")
     b.add_argument("out_dir")
     b.add_argument("--engine", choices=BATCH_ENGINES, default="cuda")
     b.add_argument("--worker-id", type=int, default=0)

@@ -5,9 +5,10 @@ The scheme is the JAX package's (``parallel/distributed.py``): GOPs are
 independent (a keyframe resets all decoder state), so a corpus is cut into
 GOP shards, each worker takes a deterministic share, decodes it, and
 writes one ``f<file>_g<gop>.npy`` per shard plus a JSONL ledger that makes
-a rerun resume where the last one stopped.  ``shard_corpus``,
-``_load_ledger`` and ``gather_corpus`` are copies of the JAX package's;
-``init_distributed`` and ``run_worker`` are the port's own.
+a rerun resume where the last one stopped.  ``_load_ledger`` and
+``gather_corpus`` are copies of the JAX package's; ``shard_corpus`` is
+too, and also cuts MOC5 (Wii) files; ``init_distributed`` and
+``run_worker`` are the port's own.
 """
 from __future__ import annotations
 
@@ -20,8 +21,8 @@ import numpy as np
 from ..models.oracle_video import MobiclipVersion, OracleDecoder
 from ..ops.vmem_engine import VmemBatchDecoder
 from ..runtime.transcode import BATCH_ENGINES, probe_info
-from .gop import (GopShard, ShardProgress, assign_shards, shard_mods,
-                  shard_moflex)
+from .gop import (GopShard, ShardProgress, assign_shards, shard_moc5,
+                  shard_mods, shard_moflex)
 
 __all__ = ["init_distributed", "run_worker", "shard_corpus",
            "gather_corpus"]
@@ -61,6 +62,8 @@ def shard_corpus(files: list[str | Path]) -> list[GopShard]:
             shards.extend(shard_mods(data, file_id=fid))
         elif data[:2] == b"\x4c\x32":
             shards.extend(shard_moflex(data, file_id=fid))
+        elif data[:4] == b"MOC5":
+            shards.extend(shard_moc5(data, file_id=fid))
         else:
             raise ValueError(f"{f}: not a GOP-shardable container")
     return shards
@@ -102,6 +105,9 @@ def _geometries(files) -> dict:
         if info["container"] == "moflex":
             vs = [s for s in info["streams"] if s["type"] == "video"][0]
             geos[fid] = (vs["width"], vs["height"],
+                         MobiclipVersion.MOFLEX_3DS)
+        elif info["container"] == "moc5":
+            geos[fid] = (info["width"], info["height"],
                          MobiclipVersion.MOFLEX_3DS)
         else:
             geos[fid] = (info["width"], info["height"],

@@ -4,10 +4,11 @@ The codec's scaling axes (SURVEY.md §5) and how they map here:
 
 * **across GOPs / files** — fully parallel (keyframes reset every piece of
   decoder state).  This module cuts container files into GOP shards using
-  the containers' native boundaries (MODS keyframe index, Moflex synchro
-  headers) and assigns them round-robin to workers.  A shard is idempotent
-  and restartable: (file, gop_index) is the checkpoint unit, mirroring the
-  reference's JumpToKeyFrame seek design (ModsDemuxer.cs:88-95).
+  the containers' native boundaries (MODS keyframe index, the I-frame
+  bit of Moflex and MOC5 packets) and assigns them round-robin to
+  workers.  A shard is idempotent and restartable: (file, gop_index) is
+  the checkpoint unit, mirroring the reference's JumpToKeyFrame seek
+  design (ModsDemuxer.cs:88-95).
 * **across streams on one chip** — parallel/batch.py lockstep batching.
 * **across chips in one process** — the batch axis sharded over the mesh's
   "data" axis (jax.sharding); ICI carries nothing between streams (they are
@@ -99,6 +100,22 @@ def shard_moflex(data: bytes, file_id: int = 0,
         else:
             stall = 0
         last = dm.position
+    return _iframe_shards(frames, file_id)
+
+
+def shard_moc5(data: bytes, file_id: int = 0) -> list[GopShard]:
+    """Cut a MOC5 (Wii) file into GOP shards at its I-frames.
+
+    MOC5 has no keyframe index and carries no decodable audio
+    (Form1.cs:282-320, README.md:14); its frames use the Moflex3DS profile,
+    so the cut points are ``shard_moflex``'s I-frame bit."""
+    from ..containers.moc5 import Moc5Demuxer
+    return _iframe_shards(list(Moc5Demuxer(data).frames()), file_id)
+
+
+def _iframe_shards(frames: list[bytes], file_id: int) -> list[GopShard]:
+    """Video-only shards of ``frames``, cut before each packet with the
+    I-frame bit (bit 7 of its second byte); frame 0 always opens one."""
     keyflags = [len(p) >= 2 and bool(p[1] & 0x80) for p in frames]
     if frames:
         keyflags[0] = True

@@ -939,18 +939,20 @@ def _chunked_video_frames(dec, packets, W: int, H: int,
 
 def decode_moc5(data: bytes, engine: str = "oracle") -> Iterator[DecodedFrame]:
     """Decode a MOC5 (Wii) container: video-only, Moflex3DS codec profile
-    (Form1.cs:282-320; audio format unknown upstream, README.md:14)."""
+    (Form1.cs:282-320; audio format unknown upstream, README.md:14).  The
+    whole frame walk runs up front under one ``mobiclip.demux`` span."""
     from ..containers.moc5 import Moc5Demuxer
-    dm = Moc5Demuxer(data)
+    with span("mobiclip.demux"):
+        dm = Moc5Demuxer(data)
+        packets = list(dm.frames())
     h = dm.header
     dec = _make_video_decoder(h.width, h.height, MobiclipVersion.MOFLEX_3DS,
                               engine)
     if hasattr(dec, "decode_stream_chunk"):
-        yield from _chunked_video_frames(dec, dm.frames(),
-                                         h.width, h.height)
+        yield from _chunked_video_frames(dec, packets, h.width, h.height)
         return
     S = dec.stride
-    for i, pkt in enumerate(dm.frames()):
+    for i, pkt in enumerate(packets):
         if isinstance(dec, OracleDecoder):
             dec.data = pkt
             dec.offset = 0

@@ -273,6 +273,58 @@ def test_cuda_transcoder_audio_goes_through_k9(cuda, container):
             np.testing.assert_array_equal(a.pcm, b.pcm, err_msg=f"frame {k}")
 
 
+def _wii_file(gop_frames, file=0):
+    """(MOC5 bytes, GOPs) at 640x480 from the benchmark's frozen
+    generator, GOPs of ``gop_frames`` frames each."""
+    from benchmark.gen import moc5
+    cfg = {"width": 640, "height": 480, "fps": 30, "version": "MOFLEX_3DS"}
+    gops = [moc5.file_gop(cfg, 2 ** 31 + 7, file, g, n, 0x18)
+            for g, n in enumerate(gop_frames)]
+    return moc5.mux_file(cfg, gops), gops
+
+
+@pytest.mark.cuda
+def test_cuda_decode_moc5_at_640x480_takes_the_global_plane(cuda):
+    """decode_moc5 with engine="cuda" on a Wii file of two 10-frame GOPs
+    (two chunks of 16 and 4 frames): frames == the oracle engine's, one
+    K1 launch a chunk, each with the working plane in global memory."""
+    from mobiclipdecoder_tpu_torch.runtime import transcode
+    data, _gops = _wii_file([10, 10])
+    planes = _plane_counts()
+    got = list(transcode.decode_moc5(data, engine="cuda"))
+    assert tuple(b - a for a, b in zip(planes, _plane_counts())) == (0, 2)
+    want = list(transcode.decode_moc5(data, engine="oracle"))
+    assert len(got) == len(want) == 20
+    for k, (a, b) in enumerate(zip(got, want)):
+        assert a.y.shape == (480, 640) and a.u.shape == (240, 320)
+        for p in ("y", "u", "v"):
+            np.testing.assert_array_equal(getattr(a, p), getattr(b, p),
+                                          err_msg=f"frame {k} {p}")
+
+
+@pytest.mark.cuda
+def test_cuda_batch_decodes_wii_files_like_the_oracle(cuda, tmp_path):
+    """The corpus worker (``batch``) with engine="cuda", B=2, over two
+    640x480 MOC5 files of two GOPs each: every shard == the oracle
+    worker's, in the global-plane form of K1."""
+    from mobiclipdecoder_tpu_torch.parallel.distributed import run_worker
+    files = []
+    for f in range(2):
+        files.append(tmp_path / f"wii{f}.moc5")
+        files[-1].write_bytes(_wii_file([4, 4], file=f)[0])
+    planes = _plane_counts()
+    st = run_worker(files, tmp_path / "cuda", engine="cuda", batch=2)
+    assert st["shards_decoded"] == 4 and st["frames"] == 16
+    assert tuple(b - a for a, b in zip(planes, _plane_counts())) == (0, 2)
+    run_worker(files, tmp_path / "oracle", engine="oracle")
+    for f in range(2):
+        for g in range(2):
+            name = f"f{f}_g{g}.npy"
+            np.testing.assert_array_equal(
+                np.load(tmp_path / "cuda" / name),
+                np.load(tmp_path / "oracle" / name), err_msg=name)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("ndev", [1, 2])
 def test_cuda_sharded_decode_matches_unsharded(cuda, ndev):

@@ -2,7 +2,8 @@
 and the batch decoder's paths, at 64x48 on the CPU (the plain executor).
 
 Under torch.profiler a MODS and a Moflex file record a span of every host
-layer, none inside another and each with frames equal to the oracle's;
+layer, none inside another and each with frames equal to the oracle's; a
+MOC5 file's frame walk is one demux span;
 with the profiler off no ``record_function`` is entered; and the counters
 of ``DecodeMetrics`` (and the process's ``TOTALS``) equal the sums over
 the native scans' results, an executor launch for each scanned GOP."""
@@ -20,6 +21,7 @@ sys.path.insert(0, str(Path(__file__).parent))
 from test_mods_e2e import _build_fixture  # noqa: E402
 from test_moflex import _build_moflex  # noqa: E402
 
+from mobiclipdecoder_tpu_torch.containers.moc5 import Moc5Muxer  # noqa: E402
 from mobiclipdecoder_tpu_torch.models.oracle_video import (  # noqa: E402
     MobiclipVersion)
 from mobiclipdecoder_tpu_torch.ops import executor  # noqa: E402
@@ -73,6 +75,31 @@ def test_a_file_records_every_layer_and_none_nests(kind):
     assert {n.removeprefix("mobiclip.") for _a, _b, n in spans} \
         == set(LAYERS)
     assert sum(n == "mobiclip.setup" for _a, _b, n in spans) == 1
+    for (_a0, b0, n0), (a1, _b1, n1) in zip(spans, spans[1:]):
+        assert a1 >= b0, (n0, n1)
+
+
+def test_decode_moc5_walks_the_file_in_one_demux_span():
+    """A MOC5 file of 20 frames (two chunks, no audio): the whole frame
+    walk is one ``mobiclip.demux`` span, first of all, and no span lies
+    inside another."""
+    synth = StreamSynthesizer(W, H, MobiclipVersion.MOFLEX_3DS, seed=33)
+    mux = Moc5Muxer(W, H)
+    for i in range(20):
+        mux.add_frame(synth.iframe(0x18) if i == 0 else synth.pframe())
+    blob = mux.to_bytes()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        got = list(pt.decode_moc5(blob, engine="cpu"))
+    _same(got, list(pt.decode_moc5(blob, engine="oracle")))
+    assert len(got) == 20
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events()
+                   if e.name.startswith("mobiclip."))
+    names = [n for _a, _b, n in spans]
+    assert names.count("mobiclip.demux") == 1
+    assert names[0] == "mobiclip.demux"
+    assert {n.removeprefix("mobiclip.") for n in names} \
+        == set(LAYERS) - {"audio"}
     for (_a0, b0, n0), (a1, _b1, n1) in zip(spans, spans[1:]):
         assert a1 >= b0, (n0, n1)
 
