@@ -163,6 +163,7 @@ import numpy as np
 import torch
 
 from mobiclipdecoder_tpu_torch.runtime.transcode import (CHUNK_FRAMES,
+                                                       launch_lengths,
                                                        width_stride)
 
 W, H = 256, 192
@@ -1020,21 +1021,31 @@ def transcode_case(tmp: Path, name: str, blob: bytes, suffix: str,
                    size, ima_chunks: int) -> dict:
     """Decode one container of frame size ``size`` with the CLI, engine
     cuda (the default) and oracle; every output file's bytes must be
-    equal, and the cuda engine must launch K9 once for each of the
-    ``ima_chunks`` chunks that carry IMA audio."""
+    equal, the cuda engine must launch K9 once for each of the
+    ``ima_chunks`` launches whose frames carry IMA audio, and the launches
+    must follow the transcoder's schedule (``launch_lengths``): every one
+    shorter than CHUNK_FRAMES but the last counted in ``ramp_launches``."""
+    from mobiclipdecoder_tpu_torch.runtime.metrics import TOTALS
     w, h = size
     src = tmp / f"{name}{suffix}"
     src.write_bytes(blob)
     zero_counts()
+    ramp0 = TOTALS.ramp_launches
     st = cli(["decode", str(src), str(tmp / f"{name}_cuda")])
     launches = read_counts()
     pro = read_prologue_counts()
     ima = read_side_counts()[2]
+    ramp = TOTALS.ramp_launches - ramp0
     if sum(launches) < 1:
         raise AssertionError(f"{name}: the cuda engine launched no kernel")
     if ima != ima_chunks:
         raise AssertionError(f"{name}: {ima} K9 launches for {ima_chunks} "
-                             f"chunks that carry IMA audio")
+                             f"launches that carry IMA audio")
+    schedule = launch_lengths(TRANSCODE_FRAMES)
+    if (sum(launches) != len(schedule) or launches[1] != schedule.count(1)
+            or ramp != sum(n < CHUNK_FRAMES for n in schedule[:-1])):
+        raise AssertionError(f"{name}: launches {launches}, ramp_launches "
+                             f"{ramp} for the schedule {schedule}")
     planes = check_plane_form(name, h, width_stride(w))
     so = cli(["decode", str(src), str(tmp / f"{name}_oracle"), "--engine",
               "oracle"])
@@ -1052,7 +1063,7 @@ def transcode_case(tmp: Path, name: str, blob: bytes, suffix: str,
     if st["frames"] != so["frames"] or st["frames"] != TRANSCODE_FRAMES:
         raise AssertionError(f"{name}: {st['frames']} vs {so['frames']}")
     return {"stats": st, "oracle": so, "launches": launches,
-            "prologue": pro, "ima_launches": ima,
+            "prologue": pro, "ima_launches": ima, "ramp_launches": ramp,
             "planes": planes, "src": src, "oracle_bytes": outs["oracle"],
             "files": {k: len(v) for k, v in outs["cuda"].items()}}
 
@@ -2774,14 +2785,15 @@ def main(argv=None) -> int:
         tmp = Path(trans_dir.name)
         t0 = time.perf_counter()
         # every MODS frame carries IMA, every Moflex frame but the first
-        # (its audio chunk follows it): one K9 launch per 16-frame chunk
-        chunks = -(-TRANSCODE_FRAMES // CHUNK_FRAMES)
+        # (its audio chunk follows it): one K9 launch per launch of the
+        # transcoder's schedule (1, 3, 12 and 4 frames) with IMA
+        chunks = len(launch_lengths(TRANSCODE_FRAMES))
         cases = (
             ("mods_256x192", mods_container(TRANSCODE_FRAMES, 11, (0, 10)),
              ".mods", (W, H), chunks),
             ("moflex_400x240", moflex_container(TRANSCODE_FRAMES, 12,
                                                 WIDE[0]), ".moflex",
-             WIDE[0], chunks),
+             WIDE[0], chunks - 1),
             ("moc5_640x480", moc5_container(TRANSCODE_FRAMES, 13, WIDE[1]),
              ".moc5", WIDE[1], 0))
         log(f"[transcode] synthesized 3 containers x {TRANSCODE_FRAMES} "
@@ -2794,7 +2806,8 @@ def main(argv=None) -> int:
                 f"{r['stats']['frames']} frames at {r['stats']['fps']} "
                 f"frames/s (oracle {r['oracle']['fps']} frames/s); launches "
                 f"whole-GOP {r['launches'][0]}, single-frame "
-                f"{r['launches'][1]}, K9 {r['ima_launches']}; plane in "
+                f"{r['launches'][1]}, K9 {r['ima_launches']}, "
+                f"ramp_launches {r['ramp_launches']}; plane in "
                 f"shared / global memory "
                 f"{r['planes'][0]} / {r['planes'][1]} | {smi}")
 

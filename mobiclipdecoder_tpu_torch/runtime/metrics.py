@@ -48,6 +48,10 @@ class DecodeMetrics:
     scan_busy_seconds: float = 0.0
     scan_native_seconds: float = 0.0
     scan_slot_seconds: float = 0.0
+    #: the transcoder's ``decode_stream_chunk`` calls that its launch ramp
+    #: (``transcode.launch_frames``) made shorter than ``CHUNK_FRAMES``,
+    #: with frames of the stream left over after them
+    ramp_launches: int = 0
 
     def add(self, **counts) -> None:
         """Add to these counters and to ``TOTALS``."""

@@ -253,8 +253,10 @@ def test_cuda_ima_final_state_matches_plain(cuda):
 @pytest.mark.parametrize("container", ["mods", "moflex"])
 def test_cuda_transcoder_audio_goes_through_k9(cuda, container):
     """decode_mods and decode_moflex with engine="cuda" on a 48-frame file
-    (3 chunks of 16 frames, IMA in each): PCM == the oracle engine's (the
-    host ImaAdpcmDecoder), one K9 launch per chunk."""
+    (launches of 1, 3, 12, 16 and 16 frames): PCM == the oracle engine's
+    (the host ImaAdpcmDecoder), one K9 launch per launch whose frames carry
+    IMA: all 5 in MODS, 4 in Moflex, whose first frame has no audio (its
+    chunk follows it)."""
     from mobiclipdecoder_tpu_torch.ops import audio_kernels
     from mobiclipdecoder_tpu_torch.runtime import transcode
     from torch_av import moflex_ima, mods_ima
@@ -263,7 +265,8 @@ def test_cuda_transcoder_audio_goes_through_k9(cuda, container):
     decode = getattr(transcode, f"decode_{container}")
     before = audio_kernels.ima_launches
     got = list(decode(blob, engine="cuda"))
-    assert audio_kernels.ima_launches - before == 48 // transcode.CHUNK_FRAMES
+    assert audio_kernels.ima_launches - before == (
+        len(transcode.launch_lengths(48)) - (container == "moflex"))
     want = list(decode(blob, engine="oracle"))
     assert len(got) == len(want) == 48
     assert sum(f.pcm is not None for f in got) >= 47
@@ -286,13 +289,15 @@ def _wii_file(gop_frames, file=0):
 @pytest.mark.cuda
 def test_cuda_decode_moc5_at_640x480_takes_the_global_plane(cuda):
     """decode_moc5 with engine="cuda" on a Wii file of two 10-frame GOPs
-    (two chunks of 16 and 4 frames): frames == the oracle engine's, one
-    K1 launch a chunk, each with the working plane in global memory."""
+    (launches of 1, 3, 12 and 4 frames): frames == the oracle
+    engine's, one K1 launch a launch, each with the working plane in
+    global memory."""
     from mobiclipdecoder_tpu_torch.runtime import transcode
     data, _gops = _wii_file([10, 10])
     planes = _plane_counts()
     got = list(transcode.decode_moc5(data, engine="cuda"))
-    assert tuple(b - a for a, b in zip(planes, _plane_counts())) == (0, 2)
+    assert tuple(b - a for a, b in zip(planes, _plane_counts())) == (
+        0, len(transcode.launch_lengths(20)))
     want = list(transcode.decode_moc5(data, engine="oracle"))
     assert len(got) == len(want) == 20
     for k, (a, b) in enumerate(zip(got, want)):
@@ -300,6 +305,22 @@ def test_cuda_decode_moc5_at_640x480_takes_the_global_plane(cuda):
         for p in ("y", "u", "v"):
             np.testing.assert_array_equal(getattr(a, p), getattr(b, p),
                                           err_msg=f"frame {k} {p}")
+
+
+@pytest.mark.cuda
+def test_cuda_decode_moc5_ramps_its_first_launches(cuda):
+    """A 48-frame Wii file (two 24-frame GOPs) through decode_moc5 on the
+    card: 5 K1 launches in the global-plane form (1, 3, 12, 16 and 16
+    frames), 1 of them a single-frame launch, and 3 ``ramp_launches``."""
+    from mobiclipdecoder_tpu_torch.runtime import metrics, transcode
+    data, _gops = _wii_file([24, 24])
+    planes, frame_launches = _plane_counts(), executor.frame_launches
+    ramp = metrics.TOTALS.ramp_launches
+    assert len(list(transcode.decode_moc5(data, engine="cuda"))) == 48
+    assert tuple(b - a for a, b in zip(planes, _plane_counts())) == (
+        0, len(transcode.launch_lengths(48))) == (0, 5)
+    assert executor.frame_launches - frame_launches == 1
+    assert metrics.TOTALS.ramp_launches - ramp == 3
 
 
 @pytest.mark.cuda

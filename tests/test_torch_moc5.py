@@ -43,8 +43,8 @@ def _reference(gops):
 
 
 def test_decode_moc5_matches_the_frozen_reference():
-    """Two GOPs of 12 frames: the transcoder's second launch of 16 frames
-    straddles the keyframe and reads the ring the first one left."""
+    """Two GOPs of 12 frames: the transcoder's launch of frames 4-15
+    straddles the keyframe and reads the ring the earlier ones left."""
     data, gops = _moc5([12, 12])
     assert transcode.width_stride(W) == S
     want = _reference(gops)

@@ -20,6 +20,12 @@ from mobiclipdecoder_tpu_torch.testing.synth import StreamSynthesizer
 W, H = 64, 48
 
 
+def spoil(video: bytes) -> bytes:
+    """A frame's video past its first 8 bytes set to 0xFF, so that it fails
+    to decode (on most seeds: a test asserts it)."""
+    return video[:8] + b"\xff" * (len(video) - 8)
+
+
 def _state(rng, index: int | None = None) -> bytes:
     """An IMA state header: step index (drawn in [0, 88] unless given),
     then the starting sample."""
@@ -36,9 +42,7 @@ def mods_ima(nframes: int, key_at=(0,), seed: int = 11, channels: int = 2,
     number of packets (default: one per channel).  ``n3``: tag 'N3', with
     the 4 bytes its quirk skips after the video of every frame whose first
     word has bit 15 set.  ``bad_index_at``: that frame's first header reads
-    step index 100.  ``truncate_video_at``: that frame's video past its
-    first 8 bytes set to 0xFF, so that it fails to decode (on most seeds:
-    a test asserts it)."""
+    step index 100.  ``truncate_video_at``: that frame's video ``spoil``ed."""
     rng = np.random.default_rng(seed)
     synth = StreamSynthesizer(W, H, MobiclipVersion.MODS_DS, seed=seed)
     mux = ModsMuxer(W, H, fps=24.0, audio_codec=3, nb_channel=channels,
@@ -66,19 +70,20 @@ def mods_ima(nframes: int, key_at=(0,), seed: int = 11, channels: int = 2,
         if n3 and (video[0] | (video[1] << 8)) & 0x8000:
             video += b"\xa5" * 4
         if f == truncate_video_at:
-            video = video[:8] + b"\xff" * (len(video) - 8)
+            video = spoil(video)
         mux.add_frame(video, pkts, keyframe=key)
     return mux.to_bytes()
 
 
 def moflex_ima(nframes: int, seed: int = 21, channels: int = 2,
-               payloads=None, pcm16: bool = False) -> bytes:
+               payloads=None, pcm16: bool = False,
+               truncate_video_at=None) -> bytes:
     """A Moflex file: video stream 0 and an IMA stream 1 (codec 1), each
     frame's video followed by its audio chunk.  ``payloads[f]`` is frame
     f's chunk as (blocks per channel, extra bytes, step index or None),
     or an int: a chunk of that many random bytes (shorter than the headers:
     dropped).  ``pcm16``: a PCM16 stream 2 beside it, an odd number of
-    bytes a frame."""
+    bytes a frame.  ``truncate_video_at``: as in ``mods_ima``."""
     rng = np.random.default_rng(seed)
     synth = StreamSynthesizer(W, H, MobiclipVersion.MOFLEX_3DS, seed=seed)
     streams = [VideoStream(stream_index=0, codec_id=0, fps_rate=24,
@@ -91,8 +96,9 @@ def moflex_ima(nframes: int, seed: int = 21, channels: int = 2,
     mux = MoflexMuxer(streams)
     payloads = [(2, 0, None)] * nframes if payloads is None else payloads
     for f in range(nframes):
-        mux.add_frame(0, synth.iframe(0x12, pad=False) if f == 0
-                      else synth.pframe(pad=False))
+        video = synth.iframe(0x12, pad=False) if f == 0 \
+            else synth.pframe(pad=False)
+        mux.add_frame(0, spoil(video) if f == truncate_video_at else video)
         spec = payloads[f]
         if isinstance(spec, int):
             chunk = rng.integers(0, 256, spec, np.uint8).tobytes()
