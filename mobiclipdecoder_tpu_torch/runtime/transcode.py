@@ -18,9 +18,13 @@ the Windows AVI library.  A copy of the JAX package's
                 where no CUDA device is present;
   ``"wavefront-cpu"``  the same decoder on the CPU, asked for explicitly.
 
-The wavefront decoder has no ``decode_stream_chunk``, so the transcoder
-decodes it frame by frame, as the JAX package does ``"tpu-xla"``.  The JAX
-package's ``"tpu"`` and ``"tpu-xla"`` names raise ``ValueError`` here.
+Every container's frames go through one frame loop,
+``_chunked_video_frames``: the container demuxes and hands it each frame's
+packet and side data (audio, keyframe flag), and ``_Launches`` hides the
+kinds of decoder from it.  The wavefront decoder has no
+``decode_stream_chunk``, so it decodes one frame a call, as the JAX
+package does ``"tpu-xla"``.  The JAX package's ``"tpu"`` and ``"tpu-xla"``
+names raise ``ValueError`` here.
 
 IMA ADPCM audio (MODS codec 3, Moflex codec 1) is decoded on the video
 decoder's device: the packets of the frames one decode call emits go as
@@ -34,7 +38,7 @@ Under ``torch.profiler`` the transcoder's layers record spans
 (building the video decoder), ``mobiclip.demux`` (the container's parsing),
 ``mobiclip.audio`` (the audio decoders, the IMA call's copies, launch and
 wait included) and ``mobiclip.emit`` (each
-``DecodedFrame``'s plane copies).  None encloses another layer's span and
+``DecodedFrame``'s plane copies, in the frame loop).  None encloses another layer's span and
 none is open across a ``yield``, so each stretch of host time belongs to
 one layer.
 """
@@ -42,6 +46,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import itertools
 from pathlib import Path
 from typing import Iterator, NamedTuple
 
@@ -70,33 +75,6 @@ class DecodedFrame:
     corrupt: bool = False   # video decode raised; planes are best-effort
 
 
-def _decode_contained(dec, pkt: bytes):
-    """Per-frame error containment, mirroring the reference player's
-    swallow-and-show-current-state policy (`catch {}`,
-    MobiclipDecoder.cs:325-326): on a decode exception the oracle's planes
-    hold the partially-decoded frame; the device engine falls back to its
-    last committed frame.  Returns (y, uv, end_offset, corrupt)."""
-    if isinstance(dec, OracleDecoder):
-        S = dec.stride
-        try:
-            dec.decode_frame()
-            corrupt = False
-        except Exception:
-            corrupt = True
-        return (dec.y_planes[0].reshape(-1, S),
-                dec.uv_planes[0].reshape(-1, S), dec.offset, corrupt)
-    try:
-        y, uv = dec.decode_frame(pkt)
-        return y, uv, dec.offset, False
-    except Exception:
-        # ring slot 0 = last successfully committed frame (the ring is only
-        # advanced when a round completes)
-        H, S = dec.height, dec.stride
-        prev = dec.ring_frame_np()[8:8 + H + H // 2, 8:8 + S]
-        return prev[:H], prev[H:], len(pkt), True
-
-
-
 def _uv_halves(uv: np.ndarray, W: int, S: int) -> tuple[np.ndarray, np.ndarray]:
     """U/V halves of a packed UV slab in either layout: full-stride rows
     (U at [0,S/2), V at [S/2,S/2+W/2)) or the device-cropped rows the VMEM
@@ -104,6 +82,7 @@ def _uv_halves(uv: np.ndarray, W: int, S: int) -> tuple[np.ndarray, np.ndarray]:
     if uv.shape[1] == S:
         return uv[:, :W // 2], uv[:, S // 2:S // 2 + W // 2]
     return uv[:, :W // 2], uv[:, W // 2:W]
+
 
 def width_stride(width: int) -> int:
     """Reference stride policy (MobiclipDecoder.cs:50-52)."""
@@ -175,28 +154,68 @@ def launch_lengths(nframes: int, failed=()) -> list[int]:
 
 
 class _Launches:
-    """One stream's ``decode_stream_chunk`` calls on the chunk path:
-    ``pos`` is how many of its frames the decoder took (decoded or failed),
-    ``size()`` the length of the next call.  A call that ``launch_frames``
-    made shorter than ``CHUNK_FRAMES`` is counted in the decoder's
-    ``ramp_launches`` when a later call shows frames were left over after
-    it (a call cut short by the end of the file is not)."""
+    """The frame loop's one view of a video decoder: ``decode`` takes the
+    next ``size()`` frames of the stream.  A chunk decoder
+    (``VmemVideoDecoder``) takes ``launch_frames(pos)`` frames per
+    ``decode_stream_chunk`` call, ``pos`` being how many of its frames it
+    took (decoded or failed); a call that ``launch_frames`` made shorter
+    than ``CHUNK_FRAMES`` is counted in the decoder's ``ramp_launches``
+    when a later call shows frames were left over after it (a call cut
+    short by the end of the file is not).  A frame decoder (the oracle,
+    ``WavefrontVideoDecoder``) takes one frame a call."""
 
     def __init__(self, dec):
         self.dec = dec
+        self.chunked = hasattr(dec, "decode_stream_chunk")
         self.pos = 0
         self._short = False
 
     def size(self) -> int:
-        return launch_frames(self.pos)
+        return launch_frames(self.pos) if self.chunked else 1
 
     def decode(self, packets: list[bytes]):
+        """(the K frames decoded, (K, HH, ·) rows; their K end offsets;
+        None, or for the frame that failed after them a function that
+        gives the planes it shows)."""
+        dec = self.dec
+        if not self.chunked:
+            try:
+                return [self._frame(packets[0])], [dec.offset], None
+            except Exception:
+                # read at once: the wavefront decoder keeps no ring frame
+                # and raises here, chained from the decode's error, as the
+                # JAX package's "tpu-xla" engine does
+                planes = self._planes()
+                return [], [], lambda: planes
         if self._short:
-            self.dec.metrics.add(ramp_launches=1)
+            dec.metrics.add(ramp_launches=1)
         self._short = len(packets) == self.size() < CHUNK_FRAMES
-        yuv, offs, err = self.dec.decode_stream_chunk(packets)
+        yuv, offs, err = dec.decode_stream_chunk(packets)
         self.pos += yuv.shape[0] + (err is not None)
-        return yuv, offs, err
+        # the failed frame's planes are read when it is emitted, after the
+        # call's audio
+        return yuv, offs, None if err is None else self._planes
+
+    def _frame(self, pkt: bytes) -> np.ndarray:
+        dec = self.dec
+        if not isinstance(dec, OracleDecoder):
+            return np.concatenate(dec.decode_frame(pkt))
+        dec.data, dec.offset = pkt, 0
+        dec.decode_frame()
+        return self._planes()
+
+    def _planes(self) -> np.ndarray:
+        """The decoder's current frame, (HH, S) rows: the oracle's planes,
+        partly decoded where its frame failed; else ring slot 0, the last
+        frame the decoder committed (the ring advances only when a round
+        completes).  So a failed frame shows what the reference player
+        shows after its ``catch {}`` (MobiclipDecoder.cs:325-326)."""
+        dec = self.dec
+        if isinstance(dec, OracleDecoder):
+            return np.concatenate([dec.y_planes[0], dec.uv_planes[0]]
+                                  ).reshape(-1, dec.stride)
+        H, S = dec.height, dec.stride
+        return dec.ring_frame_np()[8:8 + H + H // 2, 8:8 + S]
 
 
 def _nibbles(body: np.ndarray) -> np.ndarray:
@@ -348,17 +367,15 @@ def decode_mods(data: bytes, engine: str = "oracle") -> Iterator[DecodedFrame]:
     """Decode a MODS container (video + MODS-style per-frame audio packets,
     Program.cs:206-358).  Yields DecodedFrame per frame.
 
-    With a chunk-capable device engine, each fused device dispatch takes
-    ``launch_frames`` frames (1, 3, 12, then CHUNK_FRAMES); the
+    The frames are read from the file as the frame loop asks for them; the
     per-frame bitstream end offsets the audio layer needs come from the
-    host scanner.  The IMA packets of the frames one decode call emits are
+    video decoder.  The IMA packets of the frames one decode call emits are
     decoded together (``_ModsIma``)."""
     with span("mobiclip.demux"):
         dm = ModsDemuxer(data)
     h = dm.header
-    W, H = h.width, h.height
-    dec = _make_video_decoder(W, H, MobiclipVersion.MODS_DS, engine)
-    S = dec.stride if hasattr(dec, "stride") else 256
+    dec = _make_video_decoder(h.width, h.height, MobiclipVersion.MODS_DS,
+                              engine)
     nch = h.nb_channel
     has_audio = h.audio_codec in (1, 2, 3) and nch > 0 and h.frequency > 0
 
@@ -370,9 +387,9 @@ def decode_mods(data: bytes, engine: str = "oracle") -> Iterator[DecodedFrame]:
 
     adpcm, sxd, fad, sx_init = _fresh_decoders()
     queues: list[list[np.ndarray]] = [[] for _ in range(nch)]
-    state = {"cur_channel": 0, "frame_idx": 0}
+    cur_channel = 0
     ima = (_ModsIma(nch, dec.device) if has_audio and h.audio_codec == 3
-           and not isinstance(dec, OracleDecoder) else None)
+           and engine != "oracle" else None)
 
     def audio_offset(pkt: bytes, end_off: int) -> int:
         # audio starts where the video bit reader stopped, minus its
@@ -383,23 +400,14 @@ def decode_mods(data: bytes, engine: str = "oracle") -> Iterator[DecodedFrame]:
             off += 4
         return off
 
-    def plan_audio(frames) -> None:
-        """The IMA packets of the frames about to be emitted, each (rec,
-        end offset), decoded together on the video decoder's device."""
-        if ima is not None:
-            with span("mobiclip.audio"):
-                ima.plan([(pkt, n, key, audio_offset(pkt, end))
-                          for (pkt, n, key), end in frames if n > 0])
-
     def spec_packets(pkt: bytes, n_audio: int, is_key: bool,
                      end_off: int) -> None:
         """A frame's audio packets through the host decoders, into
         ``queues``."""
-        nonlocal adpcm, sxd, fad, sx_init
+        nonlocal adpcm, sxd, fad, sx_init, cur_channel
         off = audio_offset(pkt, end_off)
         if is_key and h.audio_codec == 3:
             adpcm, sxd, fad, sx_init = _fresh_decoders()
-        cur_channel = state["cur_channel"]
         for _ in range(n_audio):
             if h.audio_codec == 3:          # IMA ADPCM
                 d = adpcm[cur_channel]
@@ -422,7 +430,6 @@ def decode_mods(data: bytes, engine: str = "oracle") -> Iterator[DecodedFrame]:
                 queues[cur_channel].append(f.decode())
                 off = f.offset
             cur_channel = (cur_channel + 1) % nch
-        state["cur_channel"] = cur_channel
 
     def audio_for(pkt: bytes, n_audio: int, is_key: bool,
                   end_off: int) -> np.ndarray | None:
@@ -450,66 +457,32 @@ def decode_mods(data: bytes, engine: str = "oracle") -> Iterator[DecodedFrame]:
             queues[i] = [rest] if len(rest) else []
         return rawio.interleave_channels(chans)
 
-    def emit(y, uv, rec, end_off, corrupt) -> DecodedFrame:
-        pkt, n_audio, is_key = rec
-        pcm = None
-        if not corrupt:
-            with span("mobiclip.audio"):
-                pcm = audio_for(pkt, n_audio, is_key, end_off)
-        with span("mobiclip.emit"):
-            fr = DecodedFrame(
-                index=state["frame_idx"],
-                y=y[:H, :W].copy(),
-                u=_uv_halves(uv[:H // 2], W, S)[0].copy(),
-                v=_uv_halves(uv[:H // 2], W, S)[1].copy(),
-                keyframe=is_key, pcm=pcm, corrupt=corrupt)
-        state["frame_idx"] += 1
-        return fr
-
-    if hasattr(dec, "decode_stream_chunk"):
-        launches = _Launches(dec)
-        pending: list = []
-        eof = False
+    def records():
         while True:
             with span("mobiclip.demux"):
-                while not eof and len(pending) < launches.size():
-                    rec = dm.read_frame()
-                    if rec is None:
-                        eof = True
-                        break
-                    pending.append(rec)
-            if not pending:
+                rec = dm.read_frame()
+            if rec is None:
                 return
-            yuv, offs, err = launches.decode([p[0] for p in pending])
-            K = yuv.shape[0]
-            plan_audio(zip(pending[:K], offs))
-            for k in range(K):
-                yield emit(yuv[k][:H], yuv[k][H:], pending[k], offs[k],
-                           False)
-            if err is not None:
-                # containment: the failed frame shows the last committed
-                # ring frame, like the reference player's `catch {}`
-                prev = dec.ring_frame_np()[8:8 + H + H // 2, 8:8 + S]
-                yield emit(prev[:H], prev[H:], pending[K],
-                           len(pending[K][0]), True)
-                pending = pending[K + 1:]
-            else:
-                pending = []
-        return
+            yield rec
 
-    while True:
-        with span("mobiclip.demux"):
-            rec = dm.read_frame()
-        if rec is None:
-            return
-        pkt, _n_audio, _is_key = rec
-        if isinstance(dec, OracleDecoder):
-            dec.data = pkt
-            dec.offset = 0
-        y, uv, end_off, corrupt = _decode_contained(dec, pkt)
-        if not corrupt:
-            plan_audio([(rec, end_off)])
-        yield emit(y, uv, rec, end_off, corrupt)
+    def side(recs, offs):
+        """Each frame's (keyframe, PCM): the IMA packets of the frames
+        decoded, decoded together on the video decoder's device, then each
+        frame's audio; a failed frame gets none.  Lazy, so that audio that
+        raises does so after the frames before it were yielded, as the
+        host decoders do."""
+        if ima is not None:
+            with span("mobiclip.audio"):
+                ima.plan([(pkt, n, key, audio_offset(pkt, end))
+                          for (pkt, n, key), end in zip(recs, offs) if n > 0])
+        for rec, end in zip(recs, offs):
+            with span("mobiclip.audio"):
+                pcm = audio_for(*rec, end)
+            yield rec[2], pcm
+        if len(recs) > len(offs):
+            yield recs[-1][2], None
+
+    yield from _chunked_video_frames(dec, records(), side)
 
 
 def transcode(path: str | Path, out_prefix: str | Path,
@@ -764,146 +737,104 @@ def decode_moflex(data: bytes, engine: str = "oracle",
     from ..containers.moflex import (AudioStream, MoflexDemuxer, VideoStream,
                                      VideoStreamWithLayout)
 
-    state = {"dec": None, "S": 0, "W": 0, "H": 0, "vid": video_stream,
-             "idx": 0}
-    out_frames: list[DecodedFrame] = []
+    dec = None
+    vid = video_stream
     # audio since the last video frame: PCM, and IMA chunks not yet decoded
     pcm_pending: list[np.ndarray | _ImaChunk] = []
-    pending_v: list[tuple[bytes, list | None]] = []
+    fads: dict[int, list[FastAudioDecoder]] = {}
 
-    def _emit(y, uv, pcm, corrupt) -> None:
-        W, H, S = state["W"], state["H"], state["S"]
-        with span("mobiclip.emit"):
-            out_frames.append(DecodedFrame(
-                index=state["idx"], y=y[:H, :W].copy(),
-                u=_uv_halves(uv[:H // 2], W, S)[0].copy(),
-                v=_uv_halves(uv[:H // 2], W, S)[1].copy(),
-                keyframe=False, pcm=pcm, corrupt=corrupt))
-        state["idx"] += 1
-
-    def _flush_chunk(final: bool) -> None:
-        """Decode buffered video payloads, ``launch_frames`` per fused
-        dispatch (device engines only)."""
-        dec, launches = state["dec"], state["launches"]
-        H, S = state["H"], state["S"]
-        while pending_v:
-            n = launches.size()
-            if not final and len(pending_v) < n:
-                break
-            batch = pending_v[:n]
-            yuv, _offs, err = launches.decode([p for p, _ in batch])
-            K = yuv.shape[0]
-            pcm = _frame_pcm([a for _, a in batch[:K + (err is not None)]],
-                             dec)
-            for k in range(K):
-                _emit(yuv[k][:H], yuv[k][H:], pcm[k], False)
-            if err is not None:
-                prev = dec.ring_frame_np()[8:8 + H + H // 2, 8:8 + S]
-                _emit(prev[:H], prev[H:], pcm[K], True)
-                del pending_v[:K + 1]
-            else:
-                del pending_v[:len(batch)]
-
-    def on_frame(chunk, payload: bytes) -> None:
-        """One complete frame of a stream, taken from ``received`` after
-        the demuxer's ``read_packet`` returned."""
-        if isinstance(chunk, (VideoStream, VideoStreamWithLayout)):
-            if state["vid"] is None:
-                state["vid"] = chunk.stream_index
-            if chunk.stream_index != state["vid"]:
-                return
-            if state["dec"] is None:
-                state["W"], state["H"] = chunk.width, chunk.height
-                state["dec"] = _make_video_decoder(
-                    chunk.width, chunk.height, MobiclipVersion.MOFLEX_3DS,
-                    engine)
-                state["S"] = state["dec"].stride
-                state["launches"] = _Launches(state["dec"])
-            dec = state["dec"]
-            audio = list(pcm_pending) if pcm_pending else None
-            pcm_pending.clear()
-            if hasattr(dec, "decode_stream_chunk"):
-                pending_v.append((payload, audio))
-                _flush_chunk(final=False)
-                return
-            if isinstance(dec, OracleDecoder):
-                dec.data = payload
-                dec.offset = 0
-            y, uv, _end, corrupt = _decode_contained(dec, payload)
-            _emit(y, uv, _frame_pcm([audio], dec)[0], corrupt)
-        elif isinstance(chunk, AudioStream):
-            try:
-                with span("mobiclip.audio"):
-                    _decode_audio_chunk(chunk, payload)
-            except Exception:
-                pass  # corrupt audio packet: drop it, keep the stream going
-
-    def _decode_audio_chunk(chunk, payload: bytes) -> None:
-            ch = chunk.channels
-            if chunk.codec_id == 1 and engine != "oracle":
-                # IMA ADPCM, decoded with the frame it is attached to
-                pcm_pending.append(_ImaChunk.parse(payload, ch))
-            elif chunk.codec_id == 1:  # IMA ADPCM (Form1.cs:601-630)
-                decs = [ImaAdpcmDecoder() for _ in range(ch)]
+    def decode_audio_chunk(chunk, payload: bytes) -> None:
+        ch = chunk.channels
+        if chunk.codec_id == 1 and engine != "oracle":
+            # IMA ADPCM, decoded with the frame it is attached to
+            pcm_pending.append(_ImaChunk.parse(payload, ch))
+        elif chunk.codec_id == 1:  # IMA ADPCM (Form1.cs:601-630)
+            decs = [ImaAdpcmDecoder() for _ in range(ch)]
+            for i in range(ch):
+                decs[i].decode(payload, 4 * i, 4)
+            chans: list[list[np.ndarray]] = [[] for _ in range(ch)]
+            off = 4 * ch
+            while off + 128 * ch < len(payload):
                 for i in range(ch):
-                    decs[i].decode(payload, 4 * i, 4)
-                chans: list[list[np.ndarray]] = [[] for _ in range(ch)]
-                off = 4 * ch
-                while off + 128 * ch < len(payload):
-                    for i in range(ch):
-                        chans[i].append(decs[i].decode(payload, off, 128))
-                        off += 128
-                arrs = [np.concatenate(c) if c else np.empty(0, np.int16)
-                        for c in chans]
-                pcm_pending.append(rawio.interleave_channels(arrs))
-            elif chunk.codec_id == 2:  # PCM16 (Form1.cs:631-633)
-                n = len(payload) - (len(payload) % (ch * 2))
-                pcm_pending.append(
-                    np.frombuffer(payload[:n], dtype="<i2").copy())
-            elif chunk.codec_id == 0:  # FastAudio (Form1.cs:561-599)
-                key = ("fad", chunk.stream_index)
-                decs = state.setdefault(key, [FastAudioDecoder()
-                                              for _ in range(ch)])
-                chans2: list[list[np.ndarray]] = [[] for _ in range(ch)]
-                off = 0
-                while off + 40 < len(payload):
-                    for i in range(ch):
-                        decs[i].data = payload
-                        decs[i].offset = off
-                        chans2[i].append(decs[i].decode())
-                        off = decs[i].offset
-                arrs = [np.concatenate(c) if c else np.empty(0, np.int16)
-                        for c in chans2]
-                pcm_pending.append(rawio.interleave_channels(arrs))
+                    chans[i].append(decs[i].decode(payload, off, 128))
+                    off += 128
+            arrs = [np.concatenate(c) if c else np.empty(0, np.int16)
+                    for c in chans]
+            pcm_pending.append(rawio.interleave_channels(arrs))
+        elif chunk.codec_id == 2:  # PCM16 (Form1.cs:631-633)
+            n = len(payload) - (len(payload) % (ch * 2))
+            pcm_pending.append(
+                np.frombuffer(payload[:n], dtype="<i2").copy())
+        elif chunk.codec_id == 0:  # FastAudio (Form1.cs:561-599)
+            decs = fads.setdefault(chunk.stream_index,
+                                   [FastAudioDecoder() for _ in range(ch)])
+            chans2: list[list[np.ndarray]] = [[] for _ in range(ch)]
+            off = 0
+            while off + 40 < len(payload):
+                for i in range(ch):
+                    decs[i].data = payload
+                    decs[i].offset = off
+                    chans2[i].append(decs[i].decode())
+                    off = decs[i].offset
+            arrs = [np.concatenate(c) if c else np.empty(0, np.int16)
+                    for c in chans2]
+            pcm_pending.append(rawio.interleave_channels(arrs))
 
-    # the demuxer's callback only queues each frame, so that the decode of
-    # a packet's frames runs outside its parse (mobiclip.demux)
-    received: list[tuple[object, bytes]] = []
-    dm = MoflexDemuxer(data, on_frame=lambda c, p: received.append((c, p)))
-    stall = 0
-    last_pos = -1
-    while True:
-        with span("mobiclip.demux"):
-            r = dm.read_packet()
-        for chunk, payload in received:
-            on_frame(chunk, payload)
-            yield from out_frames
-            out_frames.clear()
-        received.clear()
-        if r in (1, 0x80):
-            break
-        if dm.position == last_pos:
-            stall += 1
-            if stall > 2:
-                break
-        else:
-            stall = 0
-        last_pos = dm.position
-    if pending_v and state["dec"] is not None:
-        _flush_chunk(final=True)
-        for fr in out_frames:
-            yield fr
-        out_frames.clear()
+    def video_frames():
+        """The chosen video stream's frames, each (payload, the audio
+        pieces since the frame before it or None); the decoder is built
+        at the first.  The demuxer's callback only queues each frame, so
+        that the decode of a packet's frames runs outside its parse
+        (mobiclip.demux); audio after the last video frame is dropped."""
+        nonlocal dec, vid
+        received: list[tuple[object, bytes]] = []
+        dm = MoflexDemuxer(data,
+                           on_frame=lambda c, p: received.append((c, p)))
+        stall = 0
+        last_pos = -1
+        while True:
+            with span("mobiclip.demux"):
+                r = dm.read_packet()
+            for chunk, payload in received:
+                if isinstance(chunk, (VideoStream, VideoStreamWithLayout)):
+                    if vid is None:
+                        vid = chunk.stream_index
+                    if chunk.stream_index != vid:
+                        continue
+                    if dec is None:
+                        dec = _make_video_decoder(
+                            chunk.width, chunk.height,
+                            MobiclipVersion.MOFLEX_3DS, engine)
+                    audio = list(pcm_pending) if pcm_pending else None
+                    pcm_pending.clear()
+                    yield payload, audio
+                elif isinstance(chunk, AudioStream):
+                    try:
+                        with span("mobiclip.audio"):
+                            decode_audio_chunk(chunk, payload)
+                    except Exception:
+                        pass  # corrupt audio packet: drop it, keep going
+            received.clear()
+            if r in (1, 0x80):
+                return
+            if dm.position == last_pos:
+                stall += 1
+                if stall > 2:
+                    return
+            else:
+                stall = 0
+            last_pos = dm.position
+
+    def side(items, _offs):
+        """Each frame's (keyframe, PCM); a failed frame keeps its PCM."""
+        return [(False, pcm)
+                for pcm in _frame_pcm([a for _p, a in items], dec)]
+
+    frames = video_frames()
+    first = next(frames, None)
+    if first is not None:
+        yield from _chunked_video_frames(
+            dec, itertools.chain([first], frames), side)
 
 
 class _ImaChunk(NamedTuple):
@@ -955,38 +886,39 @@ def _frame_pcm(audio: list[list | None], dec) -> list[np.ndarray | None]:
                             for p in a]) if a else None for a in audio]
 
 
-def _chunked_video_frames(dec, packets, W: int, H: int,
-                          pcms=None) -> Iterator[DecodedFrame]:
-    """Shared chunked video-only consumption: ``launch_frames`` per fused
-    dispatch with per-frame containment (failed frame = last committed
-    ring frame, corrupt=True).  ``pcms`` optionally pairs each packet with
-    its PCM payload (VX2)."""
-    S = dec.stride
-    idx = 0
-
-    def emit(y, uv, corrupt):
-        nonlocal idx
-        with span("mobiclip.emit"):
-            fr = DecodedFrame(
-                index=idx, y=y[:H, :W].copy(),
-                u=_uv_halves(uv[:H // 2], W, S)[0].copy(),
-                v=_uv_halves(uv[:H // 2], W, S)[1].copy(),
-                keyframe=(idx == 0),
-                pcm=(pcms[idx] if pcms is not None else None),
-                corrupt=corrupt)
-        idx += 1
-        return fr
-
+def _chunked_video_frames(dec, items, side=None) -> Iterator[DecodedFrame]:
+    """The transcoder's one frame loop, for every container and every
+    engine.  ``items`` yields each frame's (packet, the container's side
+    data...) in order, and is read only as far as the decoder needs: the
+    loop takes ``size()`` items, or what is left, per ``_Launches.decode``
+    call.  ``side(items, offsets)`` gives each item of a call, its K frames
+    decoded (``offsets``: their end offsets) and then the failed one, its
+    (keyframe, PCM); with no ``side`` each item is (packet, keyframe,
+    PCM).  A failed frame shows the planes ``_Launches`` gives for it, with
+    ``corrupt=True``."""
     launches = _Launches(dec)
-    while launches.pos < len(packets):
-        a = launches.pos
-        yuv, _offs, err = launches.decode(packets[a:a + launches.size()])
-        K = yuv.shape[0]
-        for k in range(K):
-            yield emit(yuv[k][:H], yuv[k][H:], False)
-        if err is not None:
-            prev = dec.ring_frame_np()[8:8 + H + H // 2, 8:8 + S]
-            yield emit(prev[:H], prev[H:], True)
+    W, H, S = dec.width, dec.height, dec.stride
+    items = iter(items)
+    pending: list = []
+    index = 0
+    while True:
+        pending += itertools.islice(items, launches.size() - len(pending))
+        if not pending:
+            return
+        yuv, offs, shown = launches.decode([it[0] for it in pending])
+        K = len(yuv)
+        n = K + (shown is not None)
+        done, pending = pending[:n], pending[n:]
+        sides = side(done, offs) if side else (it[1:] for it in done)
+        for k, (keyframe, pcm) in enumerate(sides):
+            planes = yuv[k] if k < K else shown()
+            with span("mobiclip.emit"):
+                u, v = _uv_halves(planes[H:], W, S)
+                frame = DecodedFrame(
+                    index=index, y=planes[:H, :W].copy(), u=u.copy(),
+                    v=v.copy(), keyframe=keyframe, pcm=pcm, corrupt=k == K)
+            index += 1
+            yield frame
 
 
 def decode_moc5(data: bytes, engine: str = "oracle") -> Iterator[DecodedFrame]:
@@ -1000,20 +932,8 @@ def decode_moc5(data: bytes, engine: str = "oracle") -> Iterator[DecodedFrame]:
     h = dm.header
     dec = _make_video_decoder(h.width, h.height, MobiclipVersion.MOFLEX_3DS,
                               engine)
-    if hasattr(dec, "decode_stream_chunk"):
-        yield from _chunked_video_frames(dec, packets, h.width, h.height)
-        return
-    S = dec.stride
-    for i, pkt in enumerate(packets):
-        if isinstance(dec, OracleDecoder):
-            dec.data = pkt
-            dec.offset = 0
-        y, uv, _end, corrupt = _decode_contained(dec, pkt)
-        yield DecodedFrame(
-            index=i, y=y[:h.height, :h.width].copy(),
-            u=uv[:h.height // 2, :h.width // 2].copy(),
-            v=uv[:h.height // 2, S // 2:S // 2 + h.width // 2].copy(),
-            keyframe=(i == 0), pcm=None, corrupt=corrupt)
+    yield from _chunked_video_frames(
+        dec, ((pkt, i == 0, None) for i, pkt in enumerate(packets)))
 
 
 def decode_vx2(data: bytes, engine: str = "oracle") -> Iterator[DecodedFrame]:
@@ -1023,26 +943,10 @@ def decode_vx2(data: bytes, engine: str = "oracle") -> Iterator[DecodedFrame]:
     dm = Vx2Demuxer(data)
     dec = _make_video_decoder(VX2_WIDTH, VX2_HEIGHT,
                               MobiclipVersion.MOFLEX_3DS, engine)
-    if hasattr(dec, "decode_stream_chunk"):
-        recs = list(dm.frames())
-        pcms = [(np.frombuffer(p, dtype="<i2").copy() if p is not None
-                 else None) for _, p in recs]
-        yield from _chunked_video_frames(dec, [pkt for pkt, _ in recs],
-                                         VX2_WIDTH, VX2_HEIGHT, pcms=pcms)
-        return
-    S = dec.stride
-    for i, (pkt, pcm) in enumerate(dm.frames()):
-        if isinstance(dec, OracleDecoder):
-            dec.data = pkt
-            dec.offset = 0
-        y, uv, _end, corrupt = _decode_contained(dec, pkt)
-        yield DecodedFrame(
-            index=i, y=y[:VX2_HEIGHT, :VX2_WIDTH].copy(),
-            u=uv[:VX2_HEIGHT // 2, :VX2_WIDTH // 2].copy(),
-            v=uv[:VX2_HEIGHT // 2, S // 2:S // 2 + VX2_WIDTH // 2].copy(),
-            keyframe=(i == 0), corrupt=corrupt,
-            pcm=(np.frombuffer(pcm, dtype="<i2").copy()
-                 if pcm is not None else None))
+    yield from _chunked_video_frames(dec, (
+        (pkt, i == 0, None if pcm is None
+         else np.frombuffer(pcm, dtype="<i2").copy())
+        for i, (pkt, pcm) in enumerate(dm.frames())))
 
 
 def read_y4m(path: str | Path):
