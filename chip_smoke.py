@@ -29,6 +29,15 @@ Then it covers the other geometries and the user's entry points:
                surface streams through decode_stream_chunk == oracle, and
                the executor's ms/GOP at B=8, F=24;
   [k2]         the single-frame launch (F=1) == plain at all three sizes;
+  [k1_forms]   K1's cluster form (a thread-block cluster a stream, its
+               frame a wavefront over macroblock rows) == its one-block
+               form, frames and ring, at the three sizes on a lone I-frame
+               (B=1 F=1) and a 24-frame GOP repeated to B=8, 16 and 32;
+               both timed in turns behind the spin, the cluster form also
+               at C = 4, 8 and 16; the clusters the card runs at once and
+               the form the wrapper takes; each form's launches (also in
+               --kernel-only); [kernel_vs_plain] holds both forms against
+               the plain executor;
   [transcode]  `python -m mobiclipdecoder_tpu_torch decode` (in process)
                of a MODS 256x192 with IMA audio, a Moflex 400x240 with
                IMA audio and a MOC5 640x480, 20 frames each: the .y4m and
@@ -113,9 +122,10 @@ reaches the executor or K6 the launch counters of the executor, the
 prologue kernels and K6-K9 are set to 0, and they are read after it (the
 kernels line gives each
 kernel's launches by path); they also show which form of the executor ran
-(the working plane in shared memory at 256x192 and 400x240, in global
-memory at 640x480).  ``--kernel-only`` stops after the build (whose ptxas
-report it prints), [prologue], K6 against its plain version, the
+(the cluster form on every path here, at most 8 streams a launch; the
+one-block form keeps the working plane in shared memory at 256x192 and
+400x240, in global memory at 640x480).  ``--kernel-only`` stops after
+the build (whose ptxas report it prints), [prologue], K6 against its plain version, the
 executor-vs-plain checks at every geometry, as a GOP and at F=1, and K7,
 K8 and K9 against their plain versions, and prints no result line.
 ``--multi-device`` runs the build, the main path's decode and then only
@@ -228,6 +238,7 @@ def zero_counts() -> None:
     executor.frame_launches = 0
     executor.smem_plane_launches = 0
     executor.global_plane_launches = 0
+    executor.cluster_launches = 0
     prologue_kernels.prologue_launches = 0
     prologue_kernels.residual_launches = 0
 
@@ -252,24 +263,28 @@ def read_wavefront_count() -> int:
     return wavefront_kernels.wavefront_launches
 
 
-def read_plane_counts() -> tuple[int, int]:
-    """(launches with the plane in shared memory, launches with it in
-    global memory) since zero_counts."""
+def read_plane_counts() -> tuple[int, int, int]:
+    """K1 launches since zero_counts: (one block a stream with the plane in
+    shared memory, the same with it in global memory, a cluster a
+    stream)."""
     from mobiclipdecoder_tpu_torch.ops import executor
-    return executor.smem_plane_launches, executor.global_plane_launches
+    return (executor.smem_plane_launches, executor.global_plane_launches,
+            executor.cluster_launches)
 
 
-def check_plane_form(label: str, h: int, S: int) -> tuple[int, int]:
-    """The launches since zero_counts all took the plane form of this
-    geometry, and at least one did."""
+def check_plane_form(label: str, h: int, S: int) -> tuple[int, int, int]:
+    """The launches since zero_counts all took one form of K1, and at
+    least one did: the cluster form (every path here runs at most 8
+    streams a launch, and the card runs every one of their clusters at
+    once), or the one-block form with this geometry's plane."""
     from mobiclipdecoder_tpu_torch.ops import executor
-    sm, gl = read_plane_counts()
-    ok = (sm > 0 and gl == 0) if executor.plane_in_smem(h, S) else (
+    sm, gl, cl = read_plane_counts()
+    one = (sm > 0 and gl == 0) if executor.plane_in_smem(h, S) else (
         gl > 0 and sm == 0)
-    if not ok:
-        raise AssertionError(f"{label}: plane-form launches smem {sm}, "
-                             f"global {gl}")
-    return sm, gl
+    if not ((cl > 0 and sm == gl == 0) or (cl == 0 and one)):
+        raise AssertionError(f"{label}: K1 launches one-block smem {sm}, "
+                             f"one-block global {gl}, cluster {cl}")
+    return sm, gl, cl
 
 
 def _popc(x):
@@ -327,19 +342,26 @@ def gop_work(ops, F: int, h: int, S: int) -> dict:
     nops = int((pixels * used).sum())
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / OPS_PER_S
     per = count.sum(axis=1)
-    return {"ops_max": int(per.max()), "ops_mean": float(per.mean()),
+    return {"streams": nb, "ops_max": int(per.max()),
+            "ops_mean": float(per.mean()),
             "bytes": nbytes, "ops": nops,
             "bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def kernel_facts(ms: float, work: dict, h: int, S: int) -> dict:
-    """The kernel's plane form, shared memory and ns per op of the serial
-    chain (the longest stream's), beside its bound."""
+    """The kernel's form, shared memory and ns per op of the longest
+    stream's ops, beside its bound."""
     from mobiclipdecoder_tpu_torch.ops import executor
     sm = executor.plane_in_smem(h, S)
-    return {"ms": ms, "plane": "shared" if sm else "global",
-            "smem_bytes": executor.smem_bytes(h, S, sm),
+    dev = torch.device("cuda", torch.cuda.current_device())
+    C = executor.cluster_form(work["streams"], h, S,
+                              executor._active_clusters(dev, h, S))
+    return {"ms": ms,
+            "plane": (f"a cluster's ({C} blocks) shared" if C
+                      else "shared" if sm else "global"),
+            "smem_bytes": (executor.cluster_smem_bytes(h, S, C) if C
+                           else executor.smem_bytes(h, S, sm)),
             "ops_per_stream": work["ops_max"],
             "ns_per_op": ms * 1e6 / max(work["ops_max"], 1),
             "bound_ms": work["bound_ms"], "bound_by": work["bound_by"],
@@ -403,9 +425,11 @@ def packed_gop(version, gop, size=(W, H)):
 
 
 def kernel_vs_plain(version, gop, label, seed, size=(W, H)):
-    """Run one packed GOP through the CUDA kernel and through the plain
+    """Run one packed GOP through the CUDA kernel, in each of its forms
+    (the wrapper's choice first, then the other), and through the plain
     executor on the CPU, from the same random ring; frames and ring must
-    be equal.  Returns (max_abs_err, kernel_ms, plain_ms, inputs)."""
+    be equal.  Returns (max_abs_err, kernel_ms, plain_ms, inputs) with the
+    time and the ring of the wrapper's form."""
     from mobiclipdecoder_tpu_torch import state
     from mobiclipdecoder_tpu_torch.ops import executor
     from mobiclipdecoder_tpu_torch.ops.residuals import _residuals
@@ -425,29 +449,45 @@ def kernel_vs_plain(version, gop, label, seed, size=(W, H)):
 
     ops_c = torch.from_numpy(ops).cuda()
     res_c = resid(True)
-    ring_c = torch.from_numpy(ring0).cuda()
-    torch.cuda.synchronize()
-    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    e0.record()
-    frames_c = executor.run_gop(ops_c, res_c, ring_c, nf, h, S)
-    e1.record()
-    torch.cuda.synchronize()
-    k_ms = e0.elapsed_time(e1)
     ring_p = torch.from_numpy(ring0.copy())
     t0 = time.perf_counter()
     frames_p = executor.run_gop(torch.from_numpy(ops), resid(False), ring_p,
                                 nf, h, S)
     p_ms = (time.perf_counter() - t0) * 1e3
-    err = max(
-        int((frames_c.cpu().to(torch.int32)
-             - frames_p.to(torch.int32)).abs().max()),
-        int((ring_c.cpu().to(torch.int32)
-             - ring_p.to(torch.int32)).abs().max()))
-    if err != 0:
-        raise AssertionError(f"{label}: kernel != plain, max abs err {err}")
+    # the form the wrapper takes first (its ring and time are returned),
+    # then the other: each form of K1 against the plain executor
+    dev = ops_c.device
+    first = ("cluster" if executor.cluster_form(
+        nb, h, S, executor._active_clusters(dev, h, S)) else "one-block")
+    k_ms, err = {}, 0
+    for form in (first, {"cluster": "one-block"}.get(first, "cluster")):
+        ring = torch.from_numpy(ring0).cuda()
+        torch.cuda.synchronize()
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        with k1_form(form):
+            e0.record()
+            frames_c = executor.run_gop(ops_c, res_c, ring, nf, h, S)
+            e1.record()
+        torch.cuda.synchronize()
+        k_ms[form] = e0.elapsed_time(e1)
+        if form == first:
+            ring_c = ring
+        e = max(
+            int((frames_c.cpu().to(torch.int32)
+                 - frames_p.to(torch.int32)).abs().max()),
+            int((ring.cpu().to(torch.int32)
+                 - ring_p.to(torch.int32)).abs().max()))
+        if e != 0:
+            raise AssertionError(f"{label}: kernel ({form} form) != plain, "
+                                 f"max abs err {e}")
+        err = max(err, e)
     log(f"[kernel_vs_plain] {label} B={nb} F={nf} nct={nct}: frames and "
-        f"ring equal (max abs err 0); kernel {k_ms:.3f} ms (first launch), "
-        f"plain {p_ms:.1f} ms (CPU)")
+        f"ring equal (max abs err 0) in both forms of the kernel; kernel "
+        f"(first launch) " + ", ".join(f"{k} {v:.3f} ms" for k, v in
+                                      k_ms.items())
+        + f" (the wrapper takes the {first} form), plain {p_ms:.1f} ms "
+        f"(CPU)")
+    k_ms = k_ms[first]
     return err, k_ms, p_ms, (ops_c, res_c, ring_c, nf, h, S)
 
 
@@ -489,8 +529,8 @@ def time_kernel(inputs, reps=20) -> float:
 
 
 def replicate(inputs, nb, reps=20) -> float:
-    """Kernel ms/GOP with a GOP's streams replicated to `nb` streams (one
-    block per stream), from a zero ring."""
+    """Kernel ms/GOP with a GOP's streams replicated to `nb` streams (in
+    the form the wrapper takes for nb streams), from a zero ring."""
     ops_c, res_c, _ring, nf, h, S = inputs
     k = nb // ops_c.shape[0]
     ring = torch.zeros((nb,) + tuple(_ring.shape[1:]), dtype=torch.uint8,
@@ -502,9 +542,9 @@ def replicate(inputs, nb, reps=20) -> float:
 
 def fixed_cost_ms(size, nf=16, reps=10) -> float:
     """Kernel ms per frame of a B=1 GOP whose frames hold no op: the
-    executor's fixed cost per frame (zeroing the working plane and
-    writing it to the frames and the ring, 16 bytes per store, in one
-    block)."""
+    executor's fixed cost per frame (finding the frame's rows, zeroing the
+    working plane and writing it to the frames and the ring, 16 bytes per
+    store; in the cluster form, which B=1 takes)."""
     from mobiclipdecoder_tpu_torch import state
     from mobiclipdecoder_tpu_torch.ops.packing import CHUNK
     h, S = size[1], width_stride(size[0])
@@ -515,6 +555,126 @@ def fixed_cost_ms(size, nf=16, reps=10) -> float:
     ring = torch.zeros(state.ring_shape(1, h, S), dtype=torch.uint8)
     return time_kernel((ops.cuda(), resid.cuda(), ring.cuda(), nf, h, S),
                        reps) / nf
+
+
+# [k1_forms]: cluster sizes timed beside the one the wrapper takes
+K1_CLUSTER_SWEEP = (4, 8, 16)
+
+
+@contextlib.contextmanager
+def k1_form(form: str, C: int | None = None):
+    """K1 in `form` whatever the batch: "one-block", or "cluster" with
+    clusters of C blocks (default: the wrapper's own choice, or CLUSTER
+    where it takes the one-block form); None: the wrapper's choice."""
+    from mobiclipdecoder_tpu_torch.ops import executor
+    choose = executor.cluster_form
+    if form == "one-block":
+        executor.cluster_form = lambda *a: 0
+    elif form == "cluster":
+        executor.cluster_form = (
+            lambda *a: C or choose(*a) or executor.CLUSTER)
+    try:
+        yield
+    finally:
+        executor.cluster_form = choose
+
+
+def k1_inputs(version, gop, size, nb, seed):
+    """K1's inputs on the card for a GOP's first stream repeated to nb
+    streams, from a random ring: (ops, resid, ring, F, h, S)."""
+    from mobiclipdecoder_tpu_torch import state
+    from mobiclipdecoder_tpu_torch.ops.residuals import _residuals
+    ops, coefs, sizes = packed_gop(version, [fr[:1] for fr in gop], size)
+    ops, coefs, sizes = (np.tile(a, (nb,) + (1,) * (a.ndim - 1))
+                         for a in (ops, coefs, sizes))
+    nct = ops.shape[1]
+    h, S = size[1], width_stride(size[0])
+    resid = _residuals(torch.from_numpy(coefs).cuda().view(-1, 64),
+                       torch.from_numpy(sizes).cuda().view(-1)
+                       ).view(nb, nct, 256, 64)
+    ring = np.random.default_rng(seed).integers(
+        0, 256, state.ring_shape(nb, h, S)).astype(np.uint8)
+    return (torch.from_numpy(ops).cuda(), resid.contiguous(),
+            torch.from_numpy(ring).cuda(), len(gop), h, S)
+
+
+def k1_forms_case(label: str, inputs, smi, reps: int = 20) -> dict:
+    """K1's cluster form and its one-block form on the same inputs: their
+    frames and rings must be equal; each form's launches; both timed in
+    turns behind the spin (median of reps), and the cluster form at each
+    size of K1_CLUSTER_SWEEP (a size the card refuses is reported)."""
+    from mobiclipdecoder_tpu_torch.ops import executor
+    ops_c, res_c, ring_c, nf, h, S = inputs
+    out, counts = {}, {}
+    for form in ("cluster", "one-block"):
+        ring = ring_c.clone()
+        zero_counts()
+        with k1_form(form):
+            frames = executor.run_gop(ops_c, res_c, ring, nf, h, S)
+        torch.cuda.synchronize()
+        out[form], counts[form] = (frames, ring), read_plane_counts()
+    C = executor.cluster_size
+    if not (torch.equal(out["cluster"][0], out["one-block"][0])
+            and torch.equal(out["cluster"][1], out["one-block"][1])):
+        raise AssertionError(f"[k1_forms] {label}: the cluster form's frames "
+                             f"or ring != the one-block form's")
+    rings = {}
+
+    def call(form, size=None):
+        rings[(form, size)] = ring_c.clone()
+
+        def fn():
+            with k1_form(form, size):
+                executor.run_gop(ops_c, res_c, rings[(form, size)], nf, h, S)
+        return fn
+
+    ms = timed_turns({"cluster": call("cluster"),
+                      "one-block": call("one-block")}, reps=reps)
+    sweep = {}
+    for size in K1_CLUSTER_SWEEP:
+        try:
+            sweep[size] = timed_turns({size: call("cluster", size)},
+                                      reps=reps)[size]
+        except RuntimeError as e:
+            sweep[size] = f"refused ({e})"
+    nb = ops_c.shape[0]
+    active = executor._active_clusters(ops_c.device, h, S)
+    took = executor.cluster_form(nb, h, S, active)
+    log(f"[k1_forms] {label} B={nb} F={nf}: cluster form (C={C}; the card "
+        f"runs " + ", ".join(f"{n} clusters of {k}" for k, n in
+                             active.items())
+        + f" at once; the wrapper takes "
+        + (f"C={took}" if took else "the one-block form")
+        + f") == one-block form, frames and ring; K1 cluster "
+        f"{ms['cluster']:.4f} "
+        f"ms, one-block {ms['one-block']:.4f} ms (median of {reps} in "
+        f"turns, behind the spin), one-block/cluster "
+        f"{ms['one-block'] / ms['cluster']:.2f}x; launches (one-block "
+        f"smem, one-block global, cluster) {counts['cluster']} and "
+        f"{counts['one-block']}; cluster sweep "
+        + ", ".join(f"C={k} " + (f"{v:.4f} ms" if isinstance(v, float)
+                                 else v) for k, v in sweep.items())
+        + f" | {smi}")
+    return {"B": nb, "F": nf, "C": C, "took": took, "ms": ms,
+            "sweep": sweep, "counts": counts}
+
+
+def k1_forms_phase(smi, reps: int = 20) -> dict:
+    """[k1_forms]: K1 in both forms at the three geometries, on a lone
+    I-frame (B=1 F=1, a file's first launch) and on a 24-frame GOP
+    repeated to B=8 (the CLI's batch), 16 and 32 (either side of the
+    clusters the card runs at once, where the wrapper's choice of form
+    turns)."""
+    from mobiclipdecoder_tpu_torch.models.oracle_video import MobiclipVersion
+    ds, mf = MobiclipVersion.MODS_DS, MobiclipVersion.MOFLEX_3DS
+    res = {}
+    for size, version in (((W, H), ds), (WIDE[0], mf), (WIDE[1], mf)):
+        label = f"{size[0]}x{size[1]}"
+        gop = synth_gops(version, [19], 1, F, size)[0]
+        for nb, nf in ((1, 1), (B, F), (16, F), (32, F)):
+            res[f"{label} B={nb} F={nf}"] = k1_forms_case(
+                label, k1_inputs(version, gop[:nf], size, nb, 5), smi, reps)
+    return res
 
 
 # op forms of the executor, by the first op word w0: type w0 & 3 (1 MC,
@@ -2007,8 +2167,8 @@ def sharded_case(label, devices, gops_packed, h, S, want_frames, want_ring,
     names = ",".join(devices)
     log(f"[sharded] {label} B={nb} F={nf} over [{names}]: "
         f"{len(gops_packed)} GOPs, frames and ring == the unsharded "
-        f"executor's; launches {launches[0]} (plane shared/global "
-        f"{planes[0]}/{planes[1]}); ms per GOP (prologue + executor, inputs "
+        f"executor's; launches {launches[0]} (one-block shared/global, "
+        f"cluster {planes[0]}/{planes[1]}, {planes[2]}); ms per GOP (prologue + executor, inputs "
         f"on cuda:0, host clock after syncing every card, mean of 5): "
         f"sharded {ms:.3f} vs one launch on cuda:0 {ms_one:.3f} | {smi}")
     return {"devices": list(devices), "B": nb, "F": nf,
@@ -2577,6 +2737,7 @@ def main(argv=None) -> int:
                 kernel_vs_plain(version, synth_gops(version, [9], 1, 1,
                                                     size)[0],
                                 f"F=1 {size[0]}x{size[1]}", 6, size)
+            k1_forms_phase(smi)
             sad_kernel_check(((W, H),) + WIDE, smi)
             audio_kernel_check(smi)
         log(f"[total] {time.perf_counter() - t_start:.1f} s; --kernel-only: "
@@ -2777,6 +2938,10 @@ def main(argv=None) -> int:
             log("[executor] " + facts_line(k, "B=1 F=1", v["facts"])
                 + f" | {smi}")
 
+    # 8b. K1's cluster form against its one-block form
+    with phase("k1_forms"):
+        k1_forms = k1_forms_phase(smi)
+
     # 9. the CLI transcoder: cuda bytes == oracle bytes (the containers
     # stay for [wavefront])
     trans = {}
@@ -2807,9 +2972,10 @@ def main(argv=None) -> int:
                 f"frames/s (oracle {r['oracle']['fps']} frames/s); launches "
                 f"whole-GOP {r['launches'][0]}, single-frame "
                 f"{r['launches'][1]}, K9 {r['ima_launches']}, "
-                f"ramp_launches {r['ramp_launches']}; plane in "
-                f"shared / global memory "
-                f"{r['planes'][0]} / {r['planes'][1]} | {smi}")
+                f"ramp_launches {r['ramp_launches']}; K1 one-block "
+                f"shared / global, cluster "
+                f"{r['planes'][0]} / {r['planes'][1]}, {r['planes'][2]} | "
+                f"{smi}")
 
     # 10. the corpus worker: 8 streams per launch == oracle worker
     with phase("batch"), tempfile.TemporaryDirectory() as d:
@@ -2938,7 +3104,9 @@ def main(argv=None) -> int:
         "by_geometry": {k: {"err": v["err"], "ms": v["ms"],
                             "plain_ms": v["plain_ms"],
                             "fixed_ms_per_frame": v["fixed_ms_per_frame"],
-                            **facts(v["facts"])} for k, v in k2.items()}})
+                            **facts(v["facts"])} for k, v in k2.items()},
+        "forms": {k: {key: v[key] for key in ("C", "took", "ms", "sweep")}
+                  for k, v in k1_forms.items()}})
     # the prologue kernels: launches on every path that reaches them (K5
     # where a sparse blob is uploaded; K4 where dense arrays are: the
     # sharded paths, the entry dry run, the scaling mesh and the bench's

@@ -101,17 +101,34 @@ def test_cuda_decoder_matches_cpu_decoder(cuda):
 
 
 def _plane_counts():
-    return executor.smem_plane_launches, executor.global_plane_launches
+    """K1 launches by form: (one block a stream, plane in shared memory;
+    one block a stream, plane in global memory; a cluster a stream)."""
+    return (executor.smem_plane_launches, executor.global_plane_launches,
+            executor.cluster_launches)
+
+
+def _take_form(monkeypatch, form, h, s):
+    """Make K1 take `form` ("cluster": the wrapper's choice for a few
+    streams; "one-block": a card stubbed to run no cluster at once) and
+    return the _plane_counts step of one launch in it."""
+    if form == "one-block":
+        monkeypatch.setattr(executor, "_active_clusters",
+                            lambda d, hh, ss: {})
+        return (1, 0, 0) if executor.plane_in_smem(h, s) else (0, 1, 0)
+    return (0, 0, 1)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("form", ["cluster", "one-block"])
 @pytest.mark.parametrize("nframes", [1, 4])
 @pytest.mark.parametrize("size", [(272, 32), (528, 32), (400, 240),
                                   (640, 480)])
-def test_cuda_kernel_matches_plain_at_wide_strides(cuda, size, nframes):
+def test_cuda_kernel_matches_plain_at_wide_strides(cuda, monkeypatch, size,
+                                                  nframes, form):
     """Strides 512 and 1024 (and the real 400x240 and 640x480), as a GOP
     and as the single-frame launch: kernel == plain executor, frames and
-    ring; the plane is in shared memory except at 640x480."""
+    ring, in each form of K1 (two streams take the cluster form; the
+    one-block form keeps the plane in shared memory except at 640x480)."""
     w, h = size
     v = MobiclipVersion.MOFLEX_3DS
     synths = [StreamSynthesizer(w, h, v, seed=s) for s in (41, 42)]
@@ -134,6 +151,7 @@ def test_cuda_kernel_matches_plain_at_wide_strides(cuda, size, nframes):
     ring0 = np.random.default_rng(1).integers(
         0, 256, state.ring_shape(B, h, stride)).astype(np.uint8)
     ring_c = torch.from_numpy(ring0).to(cuda)
+    step = _take_form(monkeypatch, form, h, stride)
     counts = (executor.launches, executor.frame_launches)
     planes = _plane_counts()
     frames_c = executor.run_gop(torch.from_numpy(ops).to(cuda),
@@ -142,9 +160,7 @@ def test_cuda_kernel_matches_plain_at_wide_strides(cuda, size, nframes):
     assert (executor.launches - counts[0],
             executor.frame_launches - counts[1]) == (
                 (0, 1) if nframes == 1 else (1, 0))
-    in_smem = size != (640, 480)
-    assert tuple(b - a for a, b in zip(planes, _plane_counts())) == (
-        (1, 0) if in_smem else (0, 1))
+    assert tuple(b - a for a, b in zip(planes, _plane_counts())) == step
     ring_p = torch.from_numpy(ring0.copy())
     frames_p = executor.run_gop(torch.from_numpy(ops), resid, ring_p,
                                 nframes, h, stride)
@@ -153,11 +169,14 @@ def test_cuda_kernel_matches_plain_at_wide_strides(cuda, size, nframes):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("form", ["cluster", "one-block"])
 @pytest.mark.parametrize("source", sorted(EDGE))
-def test_cuda_kernel_matches_plain_on_edge_gops(cuda, source):
+def test_cuda_kernel_matches_plain_on_edge_gops(cuda, monkeypatch, source,
+                                                form):
     """GOPs whose ops read and write at the plane's edges (margins, pad
     columns, slack rows, clamped and wrapped MC windows; tests/
-    torch_gops.py), frames as wide as their stride: kernel == plain."""
+    torch_gops.py), frames as wide as their stride: kernel == plain, in
+    each form of K1."""
     w, h, s = EDGE[source]
     nb, nf = 2, 4
     ops, coefs, sizes = packing._pack_gop_chunks(
@@ -169,11 +188,12 @@ def test_cuda_kernel_matches_plain_on_edge_gops(cuda, source):
     ring0 = np.random.default_rng(3).integers(
         0, 256, state.ring_shape(nb, h, s)).astype(np.uint8)
     ring_c = torch.from_numpy(ring0).to(cuda)
+    step = _take_form(monkeypatch, form, h, s)
     planes = _plane_counts()
     frames_c = executor.run_gop(torch.from_numpy(ops).to(cuda),
                                 resid.to(cuda), ring_c, nf, h, s)
     torch.cuda.synchronize()
-    assert _plane_counts()[0] == planes[0] + 1
+    assert tuple(b - a for a, b in zip(planes, _plane_counts())) == step
     ring_p = torch.from_numpy(ring0.copy())
     frames_p = executor.run_gop(torch.from_numpy(ops), resid, ring_p, nf, h,
                                 s)
@@ -287,17 +307,17 @@ def _wii_file(gop_frames, file=0):
 
 
 @pytest.mark.cuda
-def test_cuda_decode_moc5_at_640x480_takes_the_global_plane(cuda):
+def test_cuda_decode_moc5_at_640x480_takes_the_cluster_form(cuda):
     """decode_moc5 with engine="cuda" on a Wii file of two 10-frame GOPs
     (launches of 1, 3, 12 and 4 frames): frames == the oracle
-    engine's, one K1 launch a launch, each with the working plane in
-    global memory."""
+    engine's, one K1 launch a launch, each in the cluster form (one
+    stream: the plane spread over the cluster's shared memory)."""
     from mobiclipdecoder_tpu_torch.runtime import transcode
     data, _gops = _wii_file([10, 10])
     planes = _plane_counts()
     got = list(transcode.decode_moc5(data, engine="cuda"))
     assert tuple(b - a for a, b in zip(planes, _plane_counts())) == (
-        0, len(transcode.launch_lengths(20)))
+        0, 0, len(transcode.launch_lengths(20)))
     want = list(transcode.decode_moc5(data, engine="oracle"))
     assert len(got) == len(want) == 20
     for k, (a, b) in enumerate(zip(got, want)):
@@ -310,7 +330,7 @@ def test_cuda_decode_moc5_at_640x480_takes_the_global_plane(cuda):
 @pytest.mark.cuda
 def test_cuda_decode_moc5_ramps_its_first_launches(cuda):
     """A 48-frame Wii file (two 24-frame GOPs) through decode_moc5 on the
-    card: 5 K1 launches in the global-plane form (1, 3, 12, 16 and 16
+    card: 5 K1 launches in the cluster form (1, 3, 12, 16 and 16
     frames), 1 of them a single-frame launch, and 3 ``ramp_launches``."""
     from mobiclipdecoder_tpu_torch.runtime import metrics, transcode
     data, _gops = _wii_file([24, 24])
@@ -318,7 +338,7 @@ def test_cuda_decode_moc5_ramps_its_first_launches(cuda):
     ramp = metrics.TOTALS.ramp_launches
     assert len(list(transcode.decode_moc5(data, engine="cuda"))) == 48
     assert tuple(b - a for a, b in zip(planes, _plane_counts())) == (
-        0, len(transcode.launch_lengths(48))) == (0, 5)
+        0, 0, len(transcode.launch_lengths(48))) == (0, 0, 5)
     assert executor.frame_launches - frame_launches == 1
     assert metrics.TOTALS.ramp_launches - ramp == 3
 
@@ -327,7 +347,7 @@ def test_cuda_decode_moc5_ramps_its_first_launches(cuda):
 def test_cuda_batch_decodes_wii_files_like_the_oracle(cuda, tmp_path):
     """The corpus worker (``batch``) with engine="cuda", B=2, over two
     640x480 MOC5 files of two GOPs each: every shard == the oracle
-    worker's, in the global-plane form of K1."""
+    worker's, in the cluster form of K1."""
     from mobiclipdecoder_tpu_torch.parallel.distributed import run_worker
     files = []
     for f in range(2):
@@ -336,7 +356,7 @@ def test_cuda_batch_decodes_wii_files_like_the_oracle(cuda, tmp_path):
     planes = _plane_counts()
     st = run_worker(files, tmp_path / "cuda", engine="cuda", batch=2)
     assert st["shards_decoded"] == 4 and st["frames"] == 16
-    assert tuple(b - a for a, b in zip(planes, _plane_counts())) == (0, 2)
+    assert tuple(b - a for a, b in zip(planes, _plane_counts())) == (0, 0, 2)
     run_worker(files, tmp_path / "oracle", engine="oracle")
     for f in range(2):
         for g in range(2):
@@ -344,6 +364,86 @@ def test_cuda_batch_decodes_wii_files_like_the_oracle(cuda, tmp_path):
             np.testing.assert_array_equal(
                 np.load(tmp_path / "cuda" / name),
                 np.load(tmp_path / "oracle" / name), err_msg=name)
+
+
+# the codec's three geometries: (width, height) -> (stride, version)
+GEOMS = {(256, 192): (256, MobiclipVersion.MODS_DS),
+         (400, 240): (512, MobiclipVersion.MOFLEX_3DS),
+         (640, 480): (1024, MobiclipVersion.MOFLEX_3DS)}
+
+
+def _native_gop(size, nb, nf, seed):
+    """(ops, resid, stride) of nb streams x nf frames (an I-frame, then
+    P-frames) at a real geometry, scanned by the native scanner; two
+    streams are synthesized and repeated to nb."""
+    w, h = size
+    s, v = GEOMS[size]
+    parts = []
+    for b in range(min(nb, 2)):
+        syn = StreamSynthesizer(w, h, v, seed=seed + b)
+        pkts = [syn.iframe(0x18) if f == 0 else syn.pframe()
+                for f in range(nf)]
+        parts.append(packing._gop_part(
+            NativePlanner(w, h, int(v)).scan_gop_packed(pkts)))
+    ops, coefs, sizes = packing._part_dense_arrays(
+        [parts[b % len(parts)] for b in range(nb)])
+    nct = ops.shape[1]
+    resid = _residuals(torch.from_numpy(coefs).view(-1, 64),
+                       torch.from_numpy(sizes).view(-1)).view(nb, nct, 256,
+                                                               64)
+    return ops, resid, s
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb,nf", [(1, 1), (1, 16), (8, 24)])
+@pytest.mark.parametrize("size", sorted(GEOMS))
+def test_cuda_cluster_form_matches_one_block_form(cuda, monkeypatch, size,
+                                                  nb, nf):
+    """K1's cluster form (each stream a cluster decoding its frame as a
+    wavefront over macroblock rows) == its one-block form (taken here on
+    a card stubbed to run no cluster at once), frames and ring, at the three geometries: a lone
+    I-frame, 16 frames of one stream and 8 streams x 24 frames; each
+    launch is counted in its form."""
+    ops, resid, s = _native_gop(size, nb, nf, 61)
+    h = size[1]
+    ring0 = np.random.default_rng(4).integers(
+        0, 256, state.ring_shape(nb, h, s)).astype(np.uint8)
+    args = (torch.from_numpy(ops).to(cuda), resid.to(cuda))
+    counts = _plane_counts()
+    ring_c = torch.from_numpy(ring0).to(cuda)
+    frames_c = executor.run_gop(*args, ring_c, nf, h, s)
+    torch.cuda.synchronize()
+    assert tuple(b - a for a, b in zip(counts, _plane_counts())) == (0, 0, 1)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    assert executor.cluster_size == executor.cluster_form(
+        nb, h, s, executor._active_clusters(dev, h, s)) > 0
+    step = _take_form(monkeypatch, "one-block", h, s)
+    counts = _plane_counts()
+    ring_b = torch.from_numpy(ring0).to(cuda)
+    frames_b = executor.run_gop(*args, ring_b, nf, h, s)
+    torch.cuda.synchronize()
+    assert tuple(b - a for a, b in zip(counts, _plane_counts())) == step
+    assert torch.equal(frames_c, frames_b)
+    assert torch.equal(ring_c, ring_b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("container", ["mods", "moflex", "moc5"])
+def test_cuda_transcoder_takes_only_the_cluster_form(cuda, container):
+    """A transcoder run of each container on the card (one stream a
+    launch): every K1 launch is in the cluster form."""
+    from mobiclipdecoder_tpu_torch.runtime import transcode
+    from torch_av import moflex_ima, mods_ima
+    blob = {"mods": lambda: mods_ima(20, key_at=(0, 10), seed=17),
+            "moflex": lambda: moflex_ima(20, seed=19),
+            "moc5": lambda: _wii_file([10, 10])[0]}[container]()
+    decode = getattr(transcode, f"decode_{container}")
+    counts = _plane_counts()
+    launches = executor.launches + executor.frame_launches
+    assert len(list(decode(blob, engine="cuda"))) == 20
+    n = executor.launches + executor.frame_launches - launches
+    assert n == len(transcode.launch_lengths(20))
+    assert tuple(b - a for a, b in zip(counts, _plane_counts())) == (0, 0, n)
 
 
 @pytest.mark.cuda

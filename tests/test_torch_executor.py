@@ -7,8 +7,10 @@ so the interpret-mode build happens once per process.  The CUDA kernel
 runs only on a GPU; its arithmetic is checked here through the host (g++)
 build of csrc/exec_ops.cuh.
 """
+import contextlib
 import shutil
 import sys
+import types
 from pathlib import Path
 
 import numpy as np
@@ -281,24 +283,23 @@ WIDE = {"synth_s512": (272, 32, 512), "synth_s1024": (528, 32, 1024)}
 HAND = {f"hand_{k}": k for k in sorted(FAMILIES) if k != "all"}
 
 
-@pytest.mark.parametrize("source", ["synth_ds", "synth_moflex", "hand",
-                                    *WIDE, *HAND, *EDGE])
-def test_host_build_of_kernel_matches_plain(source):
-    """csrc/exec_ops.cuh built for the host with g++ (the kernel's own
-    per-op code, thread loop on the host) equals the plain executor, at
-    every stride, with the working plane in shared memory and in global
-    memory: on synthesized streams, on every hand-built op family, and on
-    GOPs whose ops read and write at the plane's edges (tests/
-    torch_gops.py)."""
-    if shutil.which("g++") is None:
-        pytest.skip("g++ is not installed")
+# edge GOPs narrower than their stride: the first U|V row's top taps read
+# the last luma row (which the cluster form's last row must not have
+# written yet), and the V block of column 0 reads no U pixel
+NARROW = {"edge_narrow_s512": (400, 48, 512),
+          "edge_narrow_s1024": (640, 64, 1024)}
+SOURCES = ["synth_ds", "synth_moflex", "hand", *WIDE, *HAND, *EDGE]
+
+
+def _source(source):
+    """(ops, resid, ring, h, s) of a named test GOP, B streams, F frames."""
     h, s = H, S
     if source == "hand":
         plans = _hand_plans(11)
     elif source in HAND:
         plans = _hand_plans(11, HAND[source])
-    elif source in EDGE:
-        w, h, s = EDGE[source]
+    elif source in EDGE or source in NARROW:
+        w, h, s = EDGE.get(source) or NARROW[source]
         plans = edge_plans(12, w, h, s, B, F)
     elif source in WIDE:
         w, h, s = WIDE[source]
@@ -308,9 +309,22 @@ def test_host_build_of_kernel_matches_plain(source):
              else MobiclipVersion.MOFLEX_3DS)
         plans = _synth_plans(v, (5, 6))
     ops, coefs, sizes = packing._pack_gop_chunks(plans, B)
-    resid = _resid(coefs, sizes)
     ring0 = np.random.default_rng(2).integers(
         0, 256, state.ring_shape(B, h, s)).astype(np.uint8)
+    return ops, _resid(coefs, sizes), ring0, h, s
+
+
+@pytest.mark.parametrize("source", SOURCES)
+def test_host_build_of_kernel_matches_plain(source):
+    """csrc/exec_ops.cuh built for the host with g++ (the kernel's own
+    per-op code, thread loop on the host) equals the plain executor, at
+    every stride, with the working plane in shared memory and in global
+    memory: on synthesized streams, on every hand-built op family, and on
+    GOPs whose ops read and write at the plane's edges (tests/
+    torch_gops.py)."""
+    if shutil.which("g++") is None:
+        pytest.skip("g++ is not installed")
+    ops, resid, ring0, h, s = _source(source)
     ring_t = torch.from_numpy(ring0.copy())
     frames = executor.run_gop(torch.from_numpy(ops), resid, ring_t, F, h, s)
     for smem_plane in (True, False):
@@ -321,6 +335,84 @@ def test_host_build_of_kernel_matches_plain(source):
                                       err_msg=f"smem_plane={smem_plane}")
         np.testing.assert_array_equal(ring_h, ring_t.numpy(),
                                       err_msg=f"smem_plane={smem_plane}")
+
+
+@pytest.mark.parametrize("C", [2, 4, 8])
+@pytest.mark.parametrize("source", [*SOURCES, *NARROW])
+def test_host_build_of_cluster_form_matches(source, C):
+    """The cluster form (C blocks a stream, each with its own macroblock
+    rows of the plane, csrc/exec_ops.cuh mobi_run_cluster built for the
+    host) equals the one-block host form and the plain executor, frames
+    and ring, with the blocks run in three legal orders that differ from
+    the decode order: by level c + 2m with rows descending and ascending
+    within a level, and the lowest row whose waits hold first."""
+    if shutil.which("g++") is None:
+        pytest.skip("g++ is not installed")
+    ops, resid, ring0, h, s = _source(source)
+    ring_t = torch.from_numpy(ring0.copy())
+    frames = executor.run_gop(torch.from_numpy(ops), resid, ring_t, F, h, s)
+    ring_1 = ring0.copy()
+    frames_1 = executor.run_gop_host(ops, resid.numpy(), ring_1, F, h, s)
+    np.testing.assert_array_equal(frames_1, frames.numpy())
+    for order in (0, 1, 2):
+        ring_c = ring0.copy()
+        frames_c = executor.run_gop_host(ops, resid.numpy(), ring_c, F, h, s,
+                                         cluster=C, order=order)
+        np.testing.assert_array_equal(frames_c, frames_1,
+                                      err_msg=f"order {order}")
+        np.testing.assert_array_equal(ring_c, ring_1,
+                                      err_msg=f"order {order}")
+
+
+@pytest.mark.parametrize("version", [MobiclipVersion.MODS_DS,
+                                     MobiclipVersion.MOFLEX_3DS])
+def test_scanner_ops_come_by_macroblock_row(version):
+    """What the cluster form relies on, on the native scanner's output for
+    synthesized I- and P-frames at the codec's three geometries: in each
+    frame the ops of a macroblock row are contiguous and the rows come in
+    order (K1 finds where each row starts from the op rows alone), every
+    op's block lies inside the rows of the macroblock row it is counted in
+    (luma rows (row - MR) >> 4, U|V rows (row - MR - H) >> 3), and a row's
+    macroblock columns never decrease."""
+    from mobiclipdecoder_tpu_torch.utils.native import NativePlanner
+    MR, MCOL = packing.MR, packing.MCOL
+    for (w, h), (s, _m) in GEOMETRIES.items():
+        syn = StreamSynthesizer(w, h, version, seed=17)
+        pkts = [syn.iframe(0x18) if f == 0 else syn.pframe()
+                for f in range(3)]
+        r = NativePlanner(w, h, int(version)).scan_gop_packed(pkts)
+        assert r["done"] == len(pkts) and not r["err"]
+        ops, _c, _s = packing._part_dense_arrays([packing._gop_part(r)])
+        chunks = ops[0]
+        frame = chunks[:, 0, 1]
+        for f in range(len(pkts)):
+            rows = np.concatenate([ck[1:1 + ck[0, 0]]
+                                   for ck in chunks[frame == f]])
+            w0, w1 = (rows[:, k].astype(np.int64) for k in range(2))
+            typ, sl = w0 & 3, (w0 >> 2) & 7
+            rr, cc = w1 & 0xFFFF, w1 >> 16
+            luma = rr < MR + h
+            mb = np.where(luma, (rr - MR) >> 4, (rr - MR - h) >> 3)
+            col = np.where(luma, (cc - MCOL) >> 4,
+                           ((cc - MCOL) & (s // 2 - 1)) >> 3)
+            assert (np.diff(mb) >= 0).all() and set(mb) == set(
+                range(h // 16)), (w, h, f)
+            for m in range(h // 16):
+                c = col[mb == m]
+                assert (np.diff(c) >= 0).all(), (w, h, f, m)
+            # rows each op writes: MC luma and U|V, residual and intra blocks
+            bh = np.where(typ == 1, (w0 >> 21) & 0x1F, np.where(
+                (typ == 2) & (sl < 4), 1 << np.minimum(sl, 3), np.where(
+                    (typ == 2) & (sl == 4), 16, np.where(
+                        typ == 2, 8, np.where(sl <= 4, 1 << np.minimum(
+                            sl, 4), np.where(sl == 6, 16, 8))))))
+            top = np.where(luma, MR + 16 * mb, MR + h + 8 * mb)
+            assert (rr >= top).all()
+            assert (rr + bh <= top + np.where(luma, 16, 8)).all(), (w, h, f)
+            mc = typ == 1
+            cy = MR + h + ((rr[mc] - MR) >> 1)
+            assert (cy >= MR + h + 8 * mb[mc]).all()
+            assert (cy + (bh[mc] >> 1) <= MR + h + 8 * mb[mc] + 8).all()
 
 
 # (width, height) -> (stride, plane in shared memory): the codec's three
@@ -346,7 +438,8 @@ def test_plane_form_by_geometry():
 
 def test_kernel_source_counts_the_same_shared_memory():
     """The wrapper's count of a block's shared memory is the kernel
-    source's own (mobi_smem_bytes, through the host build)."""
+    source's own (mobi_smem_bytes, through the host build), in both forms
+    (mobi_cl_smem_bytes for the cluster form)."""
     if shutil.which("g++") is None:
         pytest.skip("g++ is not installed")
     for h, s in [(h, s) for (_w, h), (s, _m) in GEOMETRIES.items()] + [
@@ -354,6 +447,96 @@ def test_kernel_source_counts_the_same_shared_memory():
         for smem_plane in (True, False):
             assert executor.host_smem_bytes(h, s, smem_plane) == \
                 executor.smem_bytes(h, s, smem_plane), (h, s, smem_plane)
+        for C in (2, 4, 8, 16):
+            assert executor.host_cluster_smem_bytes(h, s, C) == \
+                executor.cluster_smem_bytes(h, s, C), (h, s, C)
+
+
+def test_form_by_batch_and_sm_count():
+    """The wrapper takes the cluster form where the card (its SMs, as
+    ``cudaOccupancyMaxActiveClusters`` counts them) runs every stream's
+    cluster at once, and the one-block form otherwise: clusters of
+    CLUSTER_WIDE where all B of them run at once, else of CLUSTER.  A
+    cluster block's shared memory stays within the H100's 232,448 bytes at
+    each geometry.  On the CPU the plain executor runs whatever the form."""
+    C, CW = executor.CLUSTER, executor.CLUSTER_WIDE
+    for (_w, h), (s, _m) in GEOMETRIES.items():
+        assert executor.cluster_smem_bytes(h, s, C) <= executor.SMEM_MAX
+        assert executor.cluster_smem_bytes(h, s, CW) <= executor.SMEM_MAX
+        # an H100 with one cluster a GPC: 7 clusters of 16, 15 of 8
+        card = {CW: 7, C: 15}
+        assert executor.cluster_form(1, h, s, card) == CW
+        assert executor.cluster_form(7, h, s, card) == CW
+        assert executor.cluster_form(8, h, s, card) == C
+        assert executor.cluster_form(15, h, s, card) == C
+        assert executor.cluster_form(16, h, s, card) == 0
+        assert executor.cluster_form(16, h, s, {CW: 16, C: 8}) == CW
+        assert executor.cluster_form(1, h, s, {CW: 0, C: 1}) == C
+        assert executor.cluster_form(1, h, s, {CW: 0, C: 0}) == 0
+        assert executor.cluster_form(1, h, s, {}) == 0
+    assert executor.cluster_smem_bytes(480, 1024, 8) == (
+        executor.STAGE_BYTES + executor.CL_STATE_BYTES + 4 * 26 * 1040)
+    assert executor.cluster_smem_bytes(192, 256, 8) == (
+        29_440 + 288 + 2 * 26 * 272)
+    # rows the form does not serve
+    assert executor.cluster_form(1, 16 * (executor.CL_MAXR + 1), 256,
+                                 {CW: 99, C: 99}) == 0
+
+
+def test_launch_takes_the_form_the_sm_count_allows(monkeypatch):
+    """The launch on a (stubbed) card: B no more than the clusters it runs
+    at once launches the cluster form (``cluster_launches``,
+    ``cluster_size``), more streams the one-block form (the plane
+    counters); a refused cluster launch raises and is not retried in the
+    other form."""
+    calls = []
+
+    class Lib:
+        rc = 0
+
+        def mobi_gop_executor_cluster_launch(self, *a):
+            calls.append(("cluster", a[5], a[10]))
+            return self.rc
+
+        def mobi_gop_executor_launch(self, *a):
+            calls.append(("block", a[5], a[10]))
+            return 0
+
+    lib = Lib()
+    C, CW = executor.CLUSTER, executor.CLUSTER_WIDE
+    monkeypatch.setattr(executor, "_load", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d: types.SimpleNamespace(cuda_stream=0))
+
+    def launch(nb, active):
+        monkeypatch.setattr(executor, "_active_clusters",
+                            lambda d, h, s: active)
+        ops = torch.zeros((nb, 1, 256, 4), dtype=torch.int32)
+        executor._launch(ops, ops, ops, ops, ops, 1, H, S)
+
+    counts = (executor.cluster_launches, executor.smem_plane_launches,
+              executor.frame_launches)
+    launch(1, {CW: 0, C: 16})
+    launch(16, {CW: 0, C: 16})
+    launch(17, {CW: 0, C: 16})
+    launch(2, {CW: 0, C: 1})
+    assert calls == [("cluster", 1, C), ("cluster", 16, C), ("block", 17, 1),
+                     ("block", 2, 1)]
+    assert (executor.cluster_launches - counts[0],
+            executor.smem_plane_launches - counts[1],
+            executor.frame_launches - counts[2]) == (2, 2, 4)
+    assert executor.cluster_size == C
+    launch(2, {CW: 2, C: 16})
+    launch(3, {CW: 2, C: 16})
+    assert calls[-2:] == [("cluster", 2, CW), ("cluster", 3, C)]
+    assert executor.cluster_size == C
+    del calls[-2:]
+    lib.rc = 999
+    with pytest.raises(RuntimeError, match="clusters of 8 blocks"):
+        launch(1, {CW: 0, C: 16})
+    assert calls[-1] == ("cluster", 1, C) and len(calls) == 5
 
 
 @pytest.mark.parametrize("version", [MobiclipVersion.MODS_DS,
