@@ -40,9 +40,12 @@ Then it covers the other geometries and the user's entry points:
                the plain executor;
   [transcode]  `python -m mobiclipdecoder_tpu_torch decode` (in process)
                of a MODS 256x192 with IMA audio, a Moflex 400x240 with
-               IMA audio and a MOC5 640x480, 20 frames each: the .y4m and
-               .wav bytes equal those of `--engine oracle`, and one K9
-               launch per 16-frame chunk that carries IMA audio;
+               IMA audio, a Moflex 400x240 with FastAudio stereo at
+               32,728 Hz (each frame's chunk before its video) and a MOC5
+               640x480, 20 frames each: the .y4m and .wav bytes equal
+               those of `--engine oracle`, one K9 launch per launch that
+               carries IMA audio and one K8 launch per launch that
+               carries FastAudio;
   [batch]      the corpus worker over 8 MODS files of 2 GOPs each, 8
                streams per launch: every shard equals the oracle worker's;
   [wavefront]  the wavefront engine (the JAX package's tpu-xla; on the
@@ -81,7 +84,11 @@ Then it covers the other geometries and the user's entry points:
                transcoder's shapes (4 x 4,096 and 32 x 256 nibbles) ==
                the plain version, samples and final states, each timed;
                K8 (the FastAudio lattice) == its plain version on the
-               card over 4 rounds of 256 channels, and
+               card over 4 rounds of 256 channels; K8 with a coefficient
+               set per packet and each row's packet count at the
+               transcoder's shapes (2 channels x 5 and x 85 packets, rows
+               one packet apart) == the plain version, samples and final
+               states, each timed; and
                FastAudioBatchDecoder on the card (16 channels x 50
                packets) == the host decoders and the plain version round
                by round; each kernel and its plain version
@@ -193,6 +200,10 @@ IMA_CHANNELS, IMA_SAMPLES = 64, 32768     # [audio]: 1 s at 32768 Hz
 IMA_CHUNK_SHAPES = ((4, 4096), (32, 256))
 FA_CHANNELS, FA_PACKETS = 16, 50
 FA_CORPUS, FA_CORPUS_ROUNDS = 256, 4      # [audio]: a corpus job's streams
+# [audio]: K8's rows on the transcoder's path, one launch per launch of
+# frames: 2 channels of a first launch's 5 packets and of a 16-frame
+# launch's 85 (FastAudio at 32,728 Hz, 24 fps)
+FA_TRANSCODER_PACKETS = (5, 85)
 SAD_RANGE, SAD_REFS = 16, 5               # the encoder's defaults
 ENC_WIDE = (640, 480)                     # [encode] at the defaults
 TRACE_GOPS = 20                     # [trace]: decode_gops under the profiler
@@ -1154,6 +1165,37 @@ def moflex_container(nframes, seed, size) -> bytes:
     return mux.to_bytes()
 
 
+def fa_rounds(f: int, rate: int = 32728, fps: int = 24) -> int:
+    """The 256-sample rounds of FastAudio that frame f's chunk carries,
+    a channel: the whole rounds up to frame f + 1's start less those up
+    to frame f's."""
+    return (f + 1) * rate // (256 * fps) - f * rate // (256 * fps)
+
+
+def moflex_fastaudio_container(nframes, seed, size) -> bytes:
+    """Moflex with one video stream and 2-channel FastAudio (codec 0) at
+    32,728 Hz: frame f's chunk of fa_rounds(f) rounds of random 40-byte
+    packets (any bits decode) muxed before its video, so every frame
+    carries FastAudio."""
+    from mobiclipdecoder_tpu_torch.containers.moflex import (
+        AudioStream, MoflexMuxer, VideoStream)
+    from mobiclipdecoder_tpu_torch.models.oracle_video import MobiclipVersion
+    from mobiclipdecoder_tpu_torch.testing.synth import StreamSynthesizer
+    synth = StreamSynthesizer(*size, MobiclipVersion.MOFLEX_3DS, seed=seed)
+    rng = np.random.default_rng(seed)
+    mux = MoflexMuxer([
+        VideoStream(stream_index=0, codec_id=0, fps_rate=24, fps_scale=1,
+                    width=size[0], height=size[1]),
+        AudioStream(stream_index=1, codec_id=0, frequency=32728,
+                    channels=2)])
+    for i in range(nframes):
+        mux.add_frame(1, rng.integers(0, 256, 80 * fa_rounds(i),
+                                      np.uint8).tobytes())
+        mux.add_frame(0, synth.iframe(0x18, pad=False) if i == 0
+                      else synth.pframe(pad=False))
+    return mux.to_bytes()
+
+
 def moc5_container(nframes, seed, size) -> bytes:
     from mobiclipdecoder_tpu_torch.containers.moc5 import Moc5Muxer
     from mobiclipdecoder_tpu_torch.models.oracle_video import MobiclipVersion
@@ -1178,13 +1220,15 @@ def cli(argv) -> dict:
 
 
 def transcode_case(tmp: Path, name: str, blob: bytes, suffix: str,
-                   size, ima_chunks: int) -> dict:
+                   size, ima_chunks: int, fa_chunks: int = 0) -> dict:
     """Decode one container of frame size ``size`` with the CLI, engine
     cuda (the default) and oracle; every output file's bytes must be
     equal, the cuda engine must launch K9 once for each of the
-    ``ima_chunks`` launches whose frames carry IMA audio, and the launches
-    must follow the transcoder's schedule (``launch_lengths``): every one
-    shorter than CHUNK_FRAMES but the last counted in ``ramp_launches``."""
+    ``ima_chunks`` launches whose frames carry IMA audio and K8 once for
+    each of the ``fa_chunks`` launches whose frames carry FastAudio, and
+    the launches must follow the transcoder's schedule
+    (``launch_lengths``): every one shorter than CHUNK_FRAMES but the last
+    counted in ``ramp_launches``."""
     from mobiclipdecoder_tpu_torch.runtime.metrics import TOTALS
     w, h = size
     src = tmp / f"{name}{suffix}"
@@ -1194,13 +1238,16 @@ def transcode_case(tmp: Path, name: str, blob: bytes, suffix: str,
     st = cli(["decode", str(src), str(tmp / f"{name}_cuda")])
     launches = read_counts()
     pro = read_prologue_counts()
-    ima = read_side_counts()[2]
+    _sad, fa, ima = read_side_counts()
     ramp = TOTALS.ramp_launches - ramp0
     if sum(launches) < 1:
         raise AssertionError(f"{name}: the cuda engine launched no kernel")
     if ima != ima_chunks:
         raise AssertionError(f"{name}: {ima} K9 launches for {ima_chunks} "
                              f"launches that carry IMA audio")
+    if fa != fa_chunks:
+        raise AssertionError(f"{name}: {fa} K8 launches for {fa_chunks} "
+                             f"launches that carry FastAudio")
     schedule = launch_lengths(TRANSCODE_FRAMES)
     if (sum(launches) != len(schedule) or launches[1] != schedule.count(1)
             or ramp != sum(n < CHUNK_FRAMES for n in schedule[:-1])):
@@ -1223,7 +1270,8 @@ def transcode_case(tmp: Path, name: str, blob: bytes, suffix: str,
     if st["frames"] != so["frames"] or st["frames"] != TRANSCODE_FRAMES:
         raise AssertionError(f"{name}: {st['frames']} vs {so['frames']}")
     return {"stats": st, "oracle": so, "launches": launches,
-            "prologue": pro, "ima_launches": ima, "ramp_launches": ramp,
+            "prologue": pro, "ima_launches": ima, "fa_launches": fa,
+            "ramp_launches": ramp,
             "planes": planes, "src": src, "oracle_bytes": outs["oracle"],
             "files": {k: len(v) for k, v in outs["cuda"].items()}}
 
@@ -1782,6 +1830,19 @@ def fa_round(decs, pkts) -> tuple[np.ndarray, np.ndarray]:
     return ex, cf
 
 
+def fa_packet_case(P: int, seed: int) -> list[torch.Tensor]:
+    """K8's operands at the transcoder's shape on the card: 2 rows of P
+    random packets, unpacked (excitation and a coefficient set a packet),
+    from the zero state; the rows' lengths P and P - 1."""
+    from mobiclipdecoder_tpu_torch.models.audio_fastaudio_unpack import (
+        unpack)
+    rng = np.random.default_rng(seed)
+    excit, coef = unpack(rng.integers(0, 256, (2, P, 40), dtype=np.uint8))
+    return [torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in (
+        excit.reshape(2, -1), coef, np.zeros((2, 8), np.int32),
+        np.zeros(2, np.int32), np.array([P, P - 1], np.int32))]
+
+
 def audio_kernel_check(smi) -> dict:
     """K9 == decode_nibbles_plain on the card, exact int32, on each of
     ima_cases; K8 == fastaudio_synth_plain on the card over FA_CORPUS_ROUNDS
@@ -1868,6 +1929,23 @@ def audio_kernel_check(smi) -> dict:
         res["fastaudio"][f"{nch}x256"] = {
             "ms": ms["k8"], "plain_ms": ms["plain"],
             **fastaudio_work(nch, 256)}
+    res["fastaudio"]["transcoder_shapes"] = {}
+    for P in FA_TRANSCODER_PACKETS:
+        args = fa_packet_case(P, 31 + P)
+        got, want = ak.fastaudio_synth(*args), fastaudio_synth_plain(*args)
+        err = max(max(max_err(got[0][b, :256 * n], want[0][b, :256 * n])
+                      for b, n in enumerate((P, P - 1))),
+                  *(max_err(a, b) for a, b in zip(got[1:], want[1:])))
+        if err != 0:
+            raise AssertionError(f"K8 2 x {P} packets with lengths: max abs "
+                                 f"err {err} (samples, final states) "
+                                 f"against the plain version")
+        ms = timed_turns({"k8": lambda: ak.fastaudio_synth(*args),
+                          "plain": lambda: fastaudio_synth_plain(*args)},
+                         reps=3, warm=1)
+        res["fastaudio"]["transcoder_shapes"][f"2x{256 * P}"] = {
+            "ms": ms["k8"], "plain_ms": ms["plain"],
+            **fastaudio_work(2, 256 * P)}
     res["fastaudio"]["max_abs_err"] = err
     fa = res["fastaudio"]
     log(f"[audio] K8 == the plain version on the card over "
@@ -1877,6 +1955,13 @@ def audio_kernel_check(smi) -> dict:
                     f"{fa[k]['plain_ms']:.1f} ms (bound "
                     f"{fa[k]['bound_ms'] * 1e3:.3f} us, {fa[k]['bound_by']})"
                     for k in (f"{FA_CHANNELS}x256", f"{FA_CORPUS}x256"))
+        + "; the transcoder's shapes, a set per packet, with lengths "
+        "(samples and final states exact): "
+        + ", ".join(f"{k} K8 {v['ms']:.4f} ms vs plain {v['plain_ms']:.1f} "
+                    f"ms (bound {v['bound_ms'] * 1e3:.3f} us, "
+                    f"{v['bound_by']}; {v['ms'] * 1e3 / v['serial_steps']:.4f}"
+                    f" us a serial sample)"
+                    for k, v in fa["transcoder_shapes"].items())
         + f" (median of 3 in turns, behind the spin) | {smi}")
     return res
 
@@ -2949,22 +3034,28 @@ def main(argv=None) -> int:
     with phase("transcode"):
         tmp = Path(trans_dir.name)
         t0 = time.perf_counter()
-        # every MODS frame carries IMA, every Moflex frame but the first
-        # (its audio chunk follows it): one K9 launch per launch of the
-        # transcoder's schedule (1, 3, 12 and 4 frames) with IMA
+        # every MODS frame carries IMA, every IMA Moflex frame but the
+        # first (its audio chunk follows it), every FastAudio Moflex frame
+        # (its chunk comes first): one K9 launch per launch of the
+        # transcoder's schedule (1, 3, 12 and 4 frames) with IMA, one K8
+        # launch per launch with FastAudio
         chunks = len(launch_lengths(TRANSCODE_FRAMES))
         cases = (
             ("mods_256x192", mods_container(TRANSCODE_FRAMES, 11, (0, 10)),
-             ".mods", (W, H), chunks),
+             ".mods", (W, H), chunks, 0),
             ("moflex_400x240", moflex_container(TRANSCODE_FRAMES, 12,
                                                 WIDE[0]), ".moflex",
-             WIDE[0], chunks - 1),
+             WIDE[0], chunks - 1, 0),
+            ("moflex_fastaudio_400x240", moflex_fastaudio_container(
+                TRANSCODE_FRAMES, 14, WIDE[0]), ".moflex", WIDE[0], 0,
+             chunks),
             ("moc5_640x480", moc5_container(TRANSCODE_FRAMES, 13, WIDE[1]),
-             ".moc5", WIDE[1], 0))
-        log(f"[transcode] synthesized 3 containers x {TRANSCODE_FRAMES} "
-            f"frames in {time.perf_counter() - t0:.1f} s")
-        for cname, blob, suffix, size, ima_chunks in cases:
-            r = transcode_case(tmp, cname, blob, suffix, size, ima_chunks)
+             ".moc5", WIDE[1], 0, 0))
+        log(f"[transcode] synthesized {len(cases)} containers x "
+            f"{TRANSCODE_FRAMES} frames in {time.perf_counter() - t0:.1f} s")
+        for cname, blob, suffix, size, ima_chunks, fa_chunks in cases:
+            r = transcode_case(tmp, cname, blob, suffix, size, ima_chunks,
+                               fa_chunks)
             trans[cname] = r
             log(f"[transcode] {cname}: decode --engine cuda -> "
                 f"{r['files']} bytes, equal to --engine oracle; "
@@ -2972,6 +3063,7 @@ def main(argv=None) -> int:
                 f"frames/s (oracle {r['oracle']['fps']} frames/s); launches "
                 f"whole-GOP {r['launches'][0]}, single-frame "
                 f"{r['launches'][1]}, K9 {r['ima_launches']}, "
+                f"K8 {r['fa_launches']}, "
                 f"ramp_launches {r['ramp_launches']}; K1 one-block "
                 f"shared / global, cluster "
                 f"{r['planes'][0]} / {r['planes'][1]}, {r['planes'][2]} | "
@@ -3063,6 +3155,8 @@ def main(argv=None) -> int:
         k1_paths[label] = {"transcode": trans[cname]["launches"][0],
                            "sharded": sharded[label]["launches"],
                            "warm": warm[label]["launches"][0]}
+    k1_paths[f"{WIDE[0][0]}x{WIDE[0][1]}"]["transcode_fastaudio"] = trans[
+        "moflex_fastaudio_400x240"]["launches"][0]
     k2_paths = {"per_frame": pf_launches[1],
                 "bench_per_round": benched["launches"][1],
                 "dryrun_multichip_32x32": entry_res["launches"][1],
@@ -3208,6 +3302,8 @@ def main(argv=None) -> int:
         "by_geometry": {g: {k: v[k] for k in keys} for g, v in sad.items()}})
     fa = audio["fastaudio"]
     fa_main = fa[f"{FA_CHANNELS}x256"]
+    fa["launches"]["transcode_moflex_fastaudio"] = trans[
+        "moflex_fastaudio_400x240"]["fa_launches"]
     kernels.append({
         "name": "fastaudio_synth", "route": "cuda",
         "source": "mobiclipdecoder_tpu_torch/csrc/audio.cu",
@@ -3222,6 +3318,9 @@ def main(argv=None) -> int:
         "shape": f"{FA_CHANNELS} channels x 256 samples, one round",
         "corpus": {k: fa[f"{FA_CORPUS}x256"][k]
                    for k in ("ms", "plain_ms", "bound_ms")},
+        "transcode_shapes": {k: {key: v[key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by")}
+            for k, v in fa["transcoder_shapes"].items()},
         "batch_decoder": fa["batch_decoder"]})
     ima = audio["ima"]
     ima["launches"].update(

@@ -1,6 +1,7 @@
 // The batched audio ops for Hopper (sm_90a), bound with ctypes:
-//   K8 mobi_fastaudio_synth  the FastAudio lattice of B channels over N
-//        samples in one launch, one thread per channel (MOBI_FA_NT a block);
+//   K8 mobi_fastaudio_synth  the FastAudio lattice of B channels over P
+//        packets (a coefficient set each) in one launch, one thread per
+//        channel (MOBI_FA_NT a block);
 //   K9 mobi_ima_scan         the IMA ADPCM step-index and sample chains of M
 //        rows in one launch, one block of MOBI_IMA_NT threads per row.
 // What they replace in the JAX package (XLA code, no pallas_call), what
@@ -11,10 +12,10 @@
 
 __global__ void __launch_bounds__(MOBI_FA_NT)
     mobi_fastaudio_synth_kernel(const int32_t* excit, const int32_t* coef, const int32_t* hist0,
-                                const int32_t* r9_0, int16_t* pcm, int32_t* hist, int32_t* r9,
-                                long long B, int N) {
+                                const int32_t* r9_0, const int32_t* lengths, int16_t* pcm,
+                                int32_t* hist, int32_t* r9, long long B, int P, int L) {
   const long long b = (long long)blockIdx.x * MOBI_FA_NT + threadIdx.x;
-  if (b < B) mobi_fa_channel(excit, coef, hist0, r9_0, pcm, hist, r9, b, N);
+  if (b < B) mobi_fa_channel(excit, coef, hist0, r9_0, lengths, pcm, hist, r9, b, P, L);
 }
 
 // The barrier between K9's phases (host and device, so that the host side
@@ -49,19 +50,23 @@ static int mobi_check_device(int device) {
   return current == device ? 0 : (int)cudaErrorInvalidDevice;
 }
 
-// K8: excit (B, N), coef (B, 8), hist0 (B, 8), r9_0 (B,) -> pcm (B, N)
-// int16, hist (B, 8), r9 (B,).
+// K8: excit (B, P * L), coef (B, P, 8), hist0 (B, 8), r9_0 (B,), lengths
+// (B,) or null -> pcm (B, P * L) int16, and in hist (B, 8), r9 (B,) each
+// row's state after its first lengths[b] coefficient sets of L samples
+// (all P where lengths is null).
 extern "C" int mobi_fastaudio_synth_launch(const int32_t* excit, const int32_t* coef,
                                            const int32_t* hist0, const int32_t* r9_0,
-                                           int16_t* pcm, int32_t* hist, int32_t* r9, long long B,
-                                           long long N, int device, void* stream) {
+                                           const int32_t* lengths, int16_t* pcm, int32_t* hist,
+                                           int32_t* r9, long long B, long long P, long long L,
+                                           int device, void* stream) {
   const int rc = mobi_check_device(device);
   if (rc != 0) return rc;
-  if (B < 1 || N < 0 || N > 0x7FFFFFFFLL || (B + MOBI_FA_NT - 1) / MOBI_FA_NT > 0x7FFFFFFFLL)
+  if (B < 1 || P < 1 || L < 0 || P * L > 0x7FFFFFFFLL ||
+      (B + MOBI_FA_NT - 1) / MOBI_FA_NT > 0x7FFFFFFFLL)
     return (int)cudaErrorInvalidValue;
   mobi_fastaudio_synth_kernel<<<(unsigned)((B + MOBI_FA_NT - 1) / MOBI_FA_NT), MOBI_FA_NT, 0,
-                                (cudaStream_t)stream>>>(excit, coef, hist0, r9_0, pcm, hist, r9,
-                                                        B, (int)N);
+                                (cudaStream_t)stream>>>(excit, coef, hist0, r9_0, lengths, pcm,
+                                                        hist, r9, B, (int)P, (int)L);
   return (int)cudaGetLastError();
 }
 

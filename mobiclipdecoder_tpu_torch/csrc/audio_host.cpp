@@ -11,9 +11,10 @@
 // K8's operands (see audio.cu).
 extern "C" void mobi_fastaudio_synth_host(const int32_t* excit, const int32_t* coef,
                                           const int32_t* hist0, const int32_t* r9_0,
-                                          int16_t* pcm, int32_t* hist, int32_t* r9, long long B,
-                                          long long N) {
-  for (long long b = 0; b < B; ++b) mobi_fa_channel(excit, coef, hist0, r9_0, pcm, hist, r9, b, (int)N);
+                                          const int32_t* lengths, int16_t* pcm, int32_t* hist,
+                                          int32_t* r9, long long B, long long P, long long L) {
+  for (long long b = 0; b < B; ++b)
+    mobi_fa_channel(excit, coef, hist0, r9_0, lengths, pcm, hist, r9, b, (int)P, (int)L);
 }
 
 // K9's operands (see audio.cu).

@@ -11,8 +11,13 @@
 // 256 samples) nor operations, but each channel's serial chain: per sample
 // 8 dependent multiply-shift-subtract pairs and the de-emphasis.  The
 // design: one thread per channel keeps hist[8] and r9 in registers over all
-// N samples, so a round is one launch and the chain never leaves the
-// thread.
+// N samples, so a channel's whole run is one launch and the chain never
+// leaves the thread.  A FastAudio packet brings its own coefficients, so
+// K8 takes a set per packet (coef (B, P, 8) over N = 256 P samples) and
+// each row's own packet count: the transcoder decodes the packets of a
+// launch's channels, rows of different lengths, in one launch, and
+// carries each row's state after its own packets into the next.  The
+// JAX package's form, one set for all N samples, is P = 1.
 //   Exactness: (coef * hist + 0x4000) >> 15 is taken as an int64 product and
 // an arithmetic shift, truncated to int32, which equals the JAX package's
 // exact int32 split for |coef| < 2^15; every add and subtract of the state
@@ -76,34 +81,42 @@ MOBI_AU_HD int32_t mobi_mulshift15(int32_t a, int32_t b) {
 
 // ---------------------------------------------------------------- K8
 
-// Channel b of K8: excit (B, N), coef (B, 8), hist0 (B, 8), r9_0 (B,) ->
-// pcm (B, N) int16, hist (B, 8), r9 (B,).
+// Channel b of K8: excit (B, P * L), coef (B, P, 8) (set p for samples
+// [p * L, (p + 1) * L)), hist0 (B, 8), r9_0 (B,), lengths (B,) or null ->
+// pcm (B, P * L) int16, and in hist (B, 8), r9 (B,) the state after the
+// channel's first n = lengths[b] sets (clamped to [0, P]; P where lengths
+// is null).  Samples past n * L are padding: they are not written.
 MOBI_AU_HD void mobi_fa_channel(const int32_t* excit, const int32_t* coef, const int32_t* hist0,
-                                const int32_t* r9_0, int16_t* pcm, int32_t* hist_out,
-                                int32_t* r9_out, long long b, int N) {
-  int32_t cf[8], h[8];
+                                const int32_t* r9_0, const int32_t* lengths, int16_t* pcm,
+                                int32_t* hist_out, int32_t* r9_out, long long b, int P, int L) {
+  int n = P;
+  if (lengths != nullptr) n = lengths[b] < 0 ? 0 : (lengths[b] < P ? lengths[b] : P);
+  int32_t h[8];
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    cf[j] = coef[b * 8 + j];
-    h[j] = hist0[b * 8 + j];
-  }
+  for (int j = 0; j < 8; ++j) h[j] = hist0[b * 8 + j];
   int32_t r9 = r9_0[b];
+  const long long N = (long long)P * L;
   const int32_t* e = excit + b * N;
   int16_t* out = pcm + b * N;
-  for (int n = 0; n < N; ++n) {
-    int32_t r5 = e[n];
-    int32_t nh[8];
+  for (int p = 0; p < n; ++p) {
+    int32_t cf[8];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      r5 = mobi_wrap_sub(r5, mobi_mulshift15(cf[j], h[j]));
-      nh[j] = mobi_wrap_add(h[j], mobi_mulshift15(cf[j], r5));
+    for (int j = 0; j < 8; ++j) cf[j] = coef[(b * P + p) * 8 + j];
+    for (int s = p * L; s < (p + 1) * L; ++s) {
+      int32_t r5 = e[s];
+      int32_t nh[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        r5 = mobi_wrap_sub(r5, mobi_mulshift15(cf[j], h[j]));
+        nh[j] = mobi_wrap_add(h[j], mobi_mulshift15(cf[j], r5));
+      }
+#pragma unroll
+      for (int j = 0; j < 7; ++j) h[j] = nh[j + 1];
+      h[7] = r5;
+      r9 = mobi_wrap_add(r5, mobi_mulshift15(MOBI_FA_DEEMPH, r9));
+      const int32_t r8 = mobi_clamp(r9, -(1 << 28), 1 << 28) * 2;
+      out[s] = (int16_t)mobi_clamp(r8, -32768, 32767);
     }
-#pragma unroll
-    for (int j = 0; j < 7; ++j) h[j] = nh[j + 1];
-    h[7] = r5;
-    r9 = mobi_wrap_add(r5, mobi_mulshift15(MOBI_FA_DEEMPH, r9));
-    const int32_t r8 = mobi_clamp(r9, -(1 << 28), 1 << 28) * 2;
-    out[n] = (int16_t)mobi_clamp(r8, -32768, 32767);
   }
 #pragma unroll
   for (int j = 0; j < 8; ++j) hist_out[b * 8 + j] = h[j];

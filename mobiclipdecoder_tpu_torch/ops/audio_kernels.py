@@ -9,7 +9,10 @@ use:
 
 * K8 ``fastaudio_synth``: the FastAudio lattice and de-emphasis of B
   channels over N samples, one thread per channel holding its state in
-  registers;
+  registers.  The coefficients are one set per channel, or one per packet
+  (coef (B, P, 8), each set over N / P samples); given each row's packet
+  count, it returns the state after that many packets, so that rows
+  padded to one width can carry their own state on;
 * K9 ``ima_scan``: the IMA ADPCM step-index and sample chains of M rows,
   one block per row: each thread composes its segment's clamped-add maps,
   a block scan gives each segment's starting state, and the segment is
@@ -50,7 +53,7 @@ _TABLES: dict[str, torch.Tensor] = {}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
-_FA_ARGS = [_P] * 7 + [_L, _L]
+_FA_ARGS = [_P] * 8 + [_L, _L, _L]
 _IMA_ARGS = [_P] * 8 + [_L, _L]
 
 # the index table, then the step table, as K9 reads them
@@ -81,17 +84,25 @@ def _load_host():
     return _host_lib
 
 
-def synth_sizes(excit, coef, hist0, r9_0) -> tuple[int, int]:
-    """(B, N) of K8's operands, or ValueError unless excit (B, N), coef
-    (B, 8), hist0 (B, 8) and r9_0 (B,) with B >= 1."""
+def synth_sizes(excit, coef, hist0, r9_0, lengths=None) -> tuple[int, int,
+                                                                   int]:
+    """(B, P, L) of K8's operands: P coefficient sets a channel, each over
+    L samples.  ValueError unless excit (B, N), coef (B, 8) (P = 1, L = N)
+    or (B, P, 8) with P >= 1 dividing N (L = N / P), hist0 (B, 8), r9_0
+    (B,) and any lengths (B,), with B >= 1."""
     B, N = excit.shape if excit.ndim == 2 else (0, 0)
-    if (B < 1 or tuple(coef.shape) != (B, 8)
-            or tuple(hist0.shape) != (B, 8) or tuple(r9_0.shape) != (B,)):
+    P = coef.shape[1] if coef.ndim == 3 else 1
+    if (B < 1 or P < 1 or N % P
+            or tuple(coef.shape) not in ((B, 8), (B, P, 8))
+            or tuple(hist0.shape) != (B, 8) or tuple(r9_0.shape) != (B,)
+            or (lengths is not None and tuple(lengths.shape) != (B,))):
         raise ValueError(f"excit {tuple(excit.shape)}, coef "
                          f"{tuple(coef.shape)}, hist0 {tuple(hist0.shape)}, "
-                         f"r9_0 {tuple(r9_0.shape)}: expected (B, N), (B, "
-                         f"8), (B, 8), (B,) with B >= 1")
-    return B, N
+                         f"r9_0 {tuple(r9_0.shape)}, lengths "
+                         f"{None if lengths is None else tuple(lengths.shape)}"
+                         f": expected (B, N), (B, 8) or (B, P, 8) with P "
+                         f"dividing N, (B, 8), (B,), (B,) with B >= 1")
+    return B, P, N // P
 
 
 def scan_sizes(nibbles, index0, last0, lengths=None) -> tuple[int, int]:
@@ -118,19 +129,26 @@ def _tables(dev: torch.device) -> torch.Tensor:
 
 
 def fastaudio_synth(excit: torch.Tensor, coef: torch.Tensor,
-                    hist0: torch.Tensor, r9_0: torch.Tensor) -> tuple:
-    """K8: excit (B, N), coef (B, 8), hist0 (B, 8), r9_0 (B,), contiguous
-    int32 CUDA tensors on one device -> (pcm (B, N) int16, hist (B, 8),
-    r9 (B,) int32) on the tensors' card."""
+                    hist0: torch.Tensor, r9_0: torch.Tensor,
+                    lengths: torch.Tensor | None = None) -> tuple:
+    """K8: excit (B, N), coef (B, 8) or (B, P, 8) (``synth_sizes``), hist0
+    (B, 8), r9_0 (B,) and any lengths (B,), contiguous int32 CUDA tensors
+    on one device -> (pcm (B, N) int16, hist (B, 8), r9 (B,) int32) on the
+    tensors' card.  Given lengths, hist and r9 are each row's state after
+    its first lengths coefficient sets (clamped to [0, P]), and its
+    samples past them are left unwritten."""
     global fastaudio_launches
-    dev = on_one_card(excit=excit, coef=coef, hist0=hist0, r9_0=r9_0)
-    B, N = synth_sizes(excit, coef, hist0, r9_0)
-    pcm = torch.empty((B, N), dtype=torch.int16, device=dev)
+    ins = {"excit": excit, "coef": coef, "hist0": hist0, "r9_0": r9_0}
+    if lengths is not None:
+        ins["lengths"] = lengths
+    dev = on_one_card(**ins)
+    B, P, L = synth_sizes(excit, coef, hist0, r9_0, lengths)
+    pcm = torch.empty((B, P * L), dtype=torch.int16, device=dev)
     hist = torch.empty_like(hist0)
     r9 = torch.empty_like(r9_0)
     launch(_load().mobi_fastaudio_synth_launch, dev, excit.data_ptr(),
-           coef.data_ptr(), hist0.data_ptr(), r9_0.data_ptr(), pcm.data_ptr(),
-           hist.data_ptr(), r9.data_ptr(), B, N)
+           coef.data_ptr(), hist0.data_ptr(), r9_0.data_ptr(), _ptr(lengths),
+           pcm.data_ptr(), hist.data_ptr(), r9.data_ptr(), B, P, L)
     fastaudio_launches += 1
     return pcm, hist, r9
 
@@ -174,18 +192,21 @@ def _np32(a) -> np.ndarray:
     return np.ascontiguousarray(np.asarray(a), np.int32)
 
 
-def fastaudio_synth_host(excit, coef, hist0, r9_0) -> tuple:
+def fastaudio_synth_host(excit, coef, hist0, r9_0, lengths=None) -> tuple:
     """K8's per-channel code on the host (g++ build): numpy operands as
-    ``fastaudio_synth``'s -> (pcm int16, hist, r9) numpy."""
+    ``fastaudio_synth``'s -> (pcm int16, hist, r9) numpy; samples a row's
+    lengths leaves unwritten are 0."""
     excit, coef, hist0, r9_0 = map(_np32, (excit, coef, hist0, r9_0))
-    B, N = synth_sizes(excit, coef, hist0, r9_0)
-    pcm = np.empty((B, N), np.int16)
+    if lengths is not None:
+        lengths = _np32(lengths)
+    B, P, L = synth_sizes(excit, coef, hist0, r9_0, lengths)
+    pcm = np.zeros((B, P * L), np.int16)
     hist = np.empty_like(hist0)
     r9 = np.empty_like(r9_0)
     _load_host().mobi_fastaudio_synth_host(
         excit.ctypes.data, coef.ctypes.data, hist0.ctypes.data,
-        r9_0.ctypes.data, pcm.ctypes.data, hist.ctypes.data, r9.ctypes.data,
-        B, N)
+        r9_0.ctypes.data, _ptr(lengths), pcm.ctypes.data, hist.ctypes.data,
+        r9.ctypes.data, B, P, L)
     return pcm, hist, r9
 
 

@@ -34,42 +34,58 @@ def _mulshift15(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         torch.int32)
 
 
-def fastaudio_synth(excit, coef, hist0, r9_0):
+def fastaudio_synth(excit, coef, hist0, r9_0, lengths=None):
     """Batched FastAudio synthesis filter (FastAudioDecoder.cs:54-71).
 
     excit: (B, N) int32 pulse excitation; coef: (B, 8) int32 LPC
-    coefficients; hist0: (B, 8) int32 filter history (hist[j] =
-    Internal[107-j]); r9_0: (B,) int32 de-emphasis state, all on one
-    device.  Returns (pcm (B, N) int16, hist, r9).
+    coefficients, or (B, P, 8), one set per packet of N / P samples;
+    hist0: (B, 8) int32 filter history (hist[j] = Internal[107-j]); r9_0:
+    (B,) int32 de-emphasis state; lengths: None, or (B,) int32 each row's
+    packets (the rest of the row is padding), all on one device.  Returns
+    (pcm (B, N) int16, hist, r9): the state after each row's packets; the
+    padding's samples are not defined.
 
     On CUDA tensors one launch of K8, which takes contiguous tensors or
     raises; on CPU tensors the plain version; any other device raises."""
     if excit.device.type == "cpu":
-        return fastaudio_synth_plain(excit, coef, hist0, r9_0)
+        return fastaudio_synth_plain(excit, coef, hist0, r9_0, lengths)
     if excit.device.type != "cuda":
         raise ValueError(f"no FastAudio lattice for device {excit.device}")
-    return audio_kernels.fastaudio_synth(excit, coef, hist0, r9_0)
+    return audio_kernels.fastaudio_synth(excit, coef, hist0, r9_0, lengths)
 
 
-def fastaudio_synth_plain(excit, coef, hist0, r9_0):
+def fastaudio_synth_plain(excit, coef, hist0, r9_0, lengths=None):
     """``fastaudio_synth`` in plain torch, on whatever device its inputs
-    lie on: a loop over the samples, every channel one step at a time."""
-    hist = list(hist0.unbind(1))
-    cf = list(coef.to(torch.int64).unbind(1))       # cast once, not per use
-    r9 = r9_0
+    lie on: a loop over the samples, every channel one step at a time; a
+    row's state stops where its packets end.  Tap j of the lattice
+    subtracts coef[j] * hist[j] from r5, a product no tap changes, so the
+    r5 after each tap is the excitation less a running sum of the eight
+    products (int64, then wrapped: int32 arithmetic is arithmetic mod
+    2**32), and the history's eight updates are one product after it."""
+    B, P, L = audio_kernels.synth_sizes(excit, coef, hist0, r9_0, lengths)
+    # cast once, not per use
+    sets = coef.reshape(B, P, 8).to(torch.int64)
+    stop = None if lengths is None else lengths.clamp(0, P) * L
+    hist, r9 = hist0, r9_0
     deemph = torch.tensor(_DEEMPH, dtype=torch.int64, device=excit.device)
     out = []
-    for e in excit.unbind(1):
-        r5 = e
-        cols = []
-        for j in range(8):
-            r5 = r5 - _mulshift15(cf[j], hist[j])
-            cols.append(hist[j] + _mulshift15(cf[j], r5))
-        hist = cols[1:] + [r5]
-        r9 = r5 + _mulshift15(deemph, r9)
-        r8 = torch.clamp(r9, -(1 << 28), 1 << 28) * 2
+    for n, e in enumerate(excit.unbind(1)):
+        if n % L == 0:
+            cf = sets[:, n // L]
+        r5 = (e[:, None].to(torch.int64) - torch.cumsum(
+            _mulshift15(cf, hist), 1, dtype=torch.int64)).to(torch.int32)
+        cols = hist + _mulshift15(cf, r5)
+        cols = torch.cat([cols[:, 1:], r5[:, 7:]], dim=1)
+        r5 = r5[:, 7] + _mulshift15(deemph, r9)
+        if stop is None:
+            hist, r9 = cols, r5
+        else:
+            live = n < stop
+            hist = torch.where(live[:, None], cols, hist)
+            r9 = torch.where(live, r5, r9)
+        r8 = torch.clamp(r5, -(1 << 28), 1 << 28) * 2
         out.append(torch.clamp(r8, -32768, 32767).to(torch.int16))
-    return torch.stack(out, dim=1), torch.stack(hist, dim=1), r9
+    return torch.stack(out, dim=1), hist, r9
 
 
 class FastAudioBatchDecoder:

@@ -3,7 +3,8 @@
 The reference's only observability is a percent counter in the CLI
 (MobiConverter/Program.cs:168-175).  Here each decoder keeps a
 ``DecodeMetrics`` of what it did (frames, input bytes, the op chunks its
-scans emitted, the time of its native scans), and every add
+scans emitted, the time of its native scans, the FastAudio samples the
+transcoder synthesised on its device), and every add
 also goes to the process-wide ``TOTALS``, which outlives the decoders that a
 transcoder builds per file.  Only the thread that drives a decode adds:
 scan-pool workers time their own task and return the times in the scan
@@ -52,6 +53,9 @@ class DecodeMetrics:
     #: (``transcode.launch_frames``) made shorter than ``CHUNK_FRAMES``,
     #: with frames of the stream left over after them
     ramp_launches: int = 0
+    #: the per-channel samples the transcoder's FastAudio lattice
+    #: synthesised (``transcode._FastAudio.decode``), its padding left out
+    fastaudio_samples: int = 0
 
     def add(self, **counts) -> None:
         """Add to these counters and to ``TOTALS``."""

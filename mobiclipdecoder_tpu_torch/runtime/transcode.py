@@ -30,14 +30,18 @@ IMA ADPCM audio (MODS codec 3, Moflex codec 1) is decoded on the video
 decoder's device: the packets of the frames one decode call emits go as
 rows, one per channel and run of packets, through one ``decode_nibbles``
 call (``ops/adpcm.py``): on a CUDA decoder one launch of K9 per chunk, on
-a CPU decoder its plain version.  The oracle engine keeps the host
-``ImaAdpcmDecoder``, the spec.
+a CPU decoder its plain version.  Moflex FastAudio (codec 0) takes the
+same path: each chunk's packets are unpacked on arrival, and the packets
+of the frames one decode call emits go as rows, one per stream and
+channel, through one ``fastaudio_synth`` call (``ops/audio_lpc.py``): one
+launch of K8 on a CUDA decoder.  The oracle engine keeps the host
+``ImaAdpcmDecoder`` and ``FastAudioDecoder``, the spec.
 
 Under ``torch.profiler`` the transcoder's layers record spans
 (``runtime/metrics.py`` ``span``) beside the decoder's: ``mobiclip.setup``
 (building the video decoder), ``mobiclip.demux`` (the container's parsing),
-``mobiclip.audio`` (the audio decoders, the IMA call's copies, launch and
-wait included) and ``mobiclip.emit`` (each
+``mobiclip.audio`` (the audio decoders, the IMA and FastAudio calls'
+copies, launch and wait included) and ``mobiclip.emit`` (each
 ``DecodedFrame``'s plane copies, in the frame loop).  None encloses another layer's span and
 none is open across a ``yield``, so each stretch of host time belongs to
 one layer.
@@ -55,13 +59,16 @@ import torch
 
 from ..containers.mods import ModsDemuxer
 from ..models.audio_fastaudio import FastAudioDecoder
+from ..models.audio_fastaudio_unpack import unpack
 from ..models.audio_ima import ImaAdpcmDecoder
 from ..models.audio_sx import SxDecoder
 from ..models.oracle_video import MobiclipVersion, OracleDecoder
+from ..ops import audio_kernels
 from ..ops.adpcm import decode_nibbles
+from ..ops.audio_lpc import fastaudio_synth
 from ..ops.vmem_engine import VmemVideoDecoder
 from ..utils import rawio
-from .metrics import span
+from .metrics import DecodeMetrics, span
 
 
 @dataclasses.dataclass
@@ -225,6 +232,35 @@ def _nibbles(body: np.ndarray) -> np.ndarray:
         *body.shape[:-1], -1)
 
 
+def _pad(rows: list[np.ndarray], n: int) -> np.ndarray:
+    """rows, each (k, ...) with k <= n, stacked int32 and zero-padded to
+    (len(rows), n, ...)."""
+    out = np.zeros((len(rows), n, *rows[0].shape[1:]), np.int32)
+    for r, row in enumerate(rows):
+        out[r, :len(row)] = row
+    return out
+
+
+def _upload(parts: list[np.ndarray], device) -> list[torch.Tensor]:
+    """int32 arrays on ``device`` in one copy: one buffer, split back into
+    views of the arrays' shapes."""
+    buf = np.concatenate([np.ravel(a) for a in parts]).astype(np.int32)
+    t = torch.from_numpy(buf).to(device)
+    return [v.view(a.shape) for v, a in
+            zip(torch.split(t, [a.size for a in parts]), parts)]
+
+
+def _download(*tensors: torch.Tensor) -> list[np.ndarray]:
+    """Contiguous int32 or int16 tensors of one device (an even number of
+    int16s a tensor) on the host in one copy, each as its dtype and
+    shape."""
+    words = [t.reshape(-1).view(torch.int32) for t in tensors]
+    host = torch.cat(words).cpu().numpy()
+    at = np.cumsum([0] + [w.numel() for w in words])
+    return [host[a:b].view(np.int16 if t.dtype == torch.int16 else np.int32)
+            .reshape(t.shape) for t, a, b in zip(tensors, at, at[1:])]
+
+
 def _decode_ima(rows: list[np.ndarray], index0, last0, device):
     """IMA ADPCM rows of nibbles, each of its own length, with each row's
     starting (step index, sample), in one ``decode_nibbles`` call on
@@ -232,24 +268,14 @@ def _decode_ima(rows: list[np.ndarray], index0, last0, device):
     states to the device, one copy of the samples and final states back.
     Returns (each row's int16 samples, final index, final last); no call
     where there is no row."""
-    M = len(rows)
-    if M == 0:
+    if not rows:
         return [], np.empty(0, np.int32), np.empty(0, np.int32)
     lens = np.array([len(r) for r in rows], np.int32)
-    N = int(lens.max())
-    buf = np.zeros(M * N + 3 * M, np.int32)
-    nib = buf[:M * N].reshape(M, N)
-    for r, row in enumerate(rows):
-        nib[r, :len(row)] = row
-    buf[M * N:] = np.concatenate([index0, last0, lens])
-    t = torch.from_numpy(buf).to(device)
-    samples, index, last = decode_nibbles(
-        t[:M * N].view(M, N), t[M * N:M * N + M], t[M * N + M:M * N + 2 * M],
-        t[M * N + 2 * M:])
-    host = torch.cat([samples.view(-1), index, last]).cpu().numpy()
-    pcm = host[:M * N].reshape(M, N).astype(np.int16)
-    return ([pcm[r, :n] for r, n in enumerate(lens)],
-            host[M * N:M * N + M], host[M * N + M:])
+    args = _upload([_pad(rows, int(lens.max())), np.asarray(index0),
+                    np.asarray(last0), lens], device)
+    pcm, index, last = _download(*decode_nibbles(*args))
+    return ([pcm[r, :n].astype(np.int16) for r, n in enumerate(lens)],
+            index, last)
 
 
 @dataclasses.dataclass
@@ -739,15 +765,20 @@ def decode_moflex(data: bytes, engine: str = "oracle",
 
     dec = None
     vid = video_stream
-    # audio since the last video frame: PCM, and IMA chunks not yet decoded
-    pcm_pending: list[np.ndarray | _ImaChunk] = []
+    # audio since the last video frame: PCM, and IMA and FastAudio chunks
+    # not yet decoded
+    pcm_pending: list[np.ndarray | _ImaChunk | _FastAudioChunk] = []
     fads: dict[int, list[FastAudioDecoder]] = {}
+    fastaudio = _FastAudio()
 
     def decode_audio_chunk(chunk, payload: bytes) -> None:
         ch = chunk.channels
         if chunk.codec_id == 1 and engine != "oracle":
             # IMA ADPCM, decoded with the frame it is attached to
             pcm_pending.append(_ImaChunk.parse(payload, ch))
+        elif chunk.codec_id == 0 and engine != "oracle":
+            # FastAudio, decoded with the frame it is attached to
+            pcm_pending.append(fastaudio.parse(payload, chunk))
         elif chunk.codec_id == 1:  # IMA ADPCM (Form1.cs:601-630)
             decs = [ImaAdpcmDecoder() for _ in range(ch)]
             for i in range(ch):
@@ -827,8 +858,8 @@ def decode_moflex(data: bytes, engine: str = "oracle",
 
     def side(items, _offs):
         """Each frame's (keyframe, PCM); a failed frame keeps its PCM."""
-        return [(False, pcm)
-                for pcm in _frame_pcm([a for _p, a in items], dec)]
+        return [(False, pcm) for pcm in
+                _frame_pcm([a for _p, a in items], dec, fastaudio)]
 
     frames = video_frames()
     first = next(frames, None)
@@ -866,14 +897,138 @@ class _ImaChunk(NamedTuple):
             body.reshape(blocks, ch, 128).transpose(1, 0, 2).reshape(ch, -1)))
 
 
-def _frame_pcm(audio: list[list | None], dec) -> list[np.ndarray | None]:
+_NO_PCM = np.empty(0, np.int16)
+
+
+class _FastAudioChunk(NamedTuple):
+    """A Moflex FastAudio chunk (Form1.cs:561-599), parsed when it arrives
+    and decoded with the video frames it is attached to: rounds of one
+    40-byte packet per channel, the channels in turn, begun while more
+    than 40 bytes remain.  Where a round's packet runs past the payload
+    (or its channel has no decoder), the host loop raises there: the chunk
+    is dropped, but the packets before that one have advanced their
+    channels' state."""
+    stream: int             # the stream whose decoders it advances
+    counts: np.ndarray      # (n,) the packets channel c decodes
+    excit: np.ndarray       # (n, P, 256) int32 each packet's excitation
+    coef: np.ndarray        # (n, P, 8) int32 and its LPC coefficients
+    dropped: bool           # the host loop raised: no PCM
+
+    @classmethod
+    def parse(cls, payload: bytes, ch: int, stream: int,
+              decoders: int) -> "_FastAudioChunk":
+        """``ch``: the chunk's channels; ``decoders``: how many channels
+        its stream's decoders have (the stream's first chunk's)."""
+        L, step = len(payload), 40 * ch
+        begun = (L - 41) // step + 1 if L > 40 else 0
+        whole = 0 if ch > decoders else min(begun, L // step)
+        counts = np.full(min(ch, decoders), whole)
+        if begun > whole:   # the round the host loop raises in
+            counts[:min((L - whole * step) // 40, decoders)] += 1
+        P = int(counts.max(initial=0))
+        body = np.zeros(P * step, np.uint8)
+        body[:min(L, P * step)] = np.frombuffer(payload, np.uint8,
+                                                min(L, P * step))
+        excit, coef = unpack(body.reshape(P, ch, 40)[:, :len(counts)]
+                             .transpose(1, 0, 2))
+        return cls(stream, counts, excit, coef, begun > whole)
+
+
+class _FastAudio:
+    """A Moflex file's FastAudio on the video decoder's device.  As the
+    host loop keys its decoders by stream and makes them at the stream's
+    first chunk, this keeps each stream's channel count from its first
+    chunk and its channels' lattice state (hist, r9) from one decode call
+    to the next; nothing resets it."""
+
+    def __init__(self):
+        self.channels: dict[int, int] = {}
+        self.state: dict[int, tuple[np.ndarray, np.ndarray]] = {}
+
+    def parse(self, payload: bytes, chunk) -> _FastAudioChunk:
+        n = self.channels.setdefault(chunk.stream_index, chunk.channels)
+        return _FastAudioChunk.parse(payload, chunk.channels,
+                                     chunk.stream_index, n)
+
+    def decode(self, chunks: list[_FastAudioChunk], dec) -> list:
+        """Each chunk's interleaved PCM, None where it is dropped: every
+        packet of ``chunks`` in one ``_decode_fastaudio`` call on ``dec``'s
+        device, a row per stream and channel, each row's packets in the
+        order they arrived.  Counts the samples in ``fastaudio_samples``."""
+        runs: dict[tuple[int, int], list] = {}
+        for c in chunks:
+            for k, n in enumerate(c.counts):
+                if n:
+                    runs.setdefault((c.stream, k), []).append(
+                        (c.excit[k, :n], c.coef[k, :n]))
+        rows = list(runs)
+        for s in {s for s, _k in rows} - set(self.state):
+            n = self.channels[s]
+            self.state[s] = (np.zeros((n, 8), np.int32),
+                             np.zeros(n, np.int32))
+        pcm, hist, r9 = _decode_fastaudio(
+            [(np.concatenate([e for e, _c in runs[r]]),
+              np.concatenate([c for _e, c in runs[r]])) for r in rows],
+            np.array([self.state[s][0][k] for s, k in rows]).reshape(-1, 8),
+            np.array([self.state[s][1][k] for s, k in rows], np.int32),
+            dec.device)
+        metrics = getattr(dec, "metrics", None) or DecodeMetrics()
+        metrics.add(fastaudio_samples=sum(map(len, pcm)))
+        for r, (s, k) in enumerate(rows):
+            self.state[s][0][k], self.state[s][1][k] = hist[r], r9[r]
+        pcm = dict(zip(rows, pcm))
+        at: dict[tuple[int, int], int] = {}     # each row's samples taken
+        out = []
+        for c in chunks:
+            chans = []
+            for k, n in enumerate(c.counts):
+                a = at.get((c.stream, k), 0)
+                chans.append(pcm.get((c.stream, k), _NO_PCM)[a:a + 256 * n])
+                at[c.stream, k] = a + 256 * n
+            out.append(None if c.dropped else
+                       rawio.interleave_channels(chans))
+        return out
+
+
+def _decode_fastaudio(rows: list[tuple[np.ndarray, np.ndarray]], hist0, r9_0,
+                      device):
+    """FastAudio rows, each its packets' excitation (n, 256) and LPC
+    coefficients (n, 8) with its starting state (hist (8,), r9), in one
+    ``fastaudio_synth`` call on ``device``: one copy of the rows (padded
+    to the longest with packets of zeros), their states and packet counts
+    to the device, one copy of the samples and final states back.  On the
+    CPU the lattice is K8's own code in its g++ build, on the arrays as
+    they are (``fastaudio_synth``'s plain version steps through the
+    samples in Python).  Returns (each row's int16 samples, final hist
+    (M, 8), final r9 (M,)); no call where there is no row."""
+    if not rows:
+        return [], np.empty((0, 8), np.int32), np.empty(0, np.int32)
+    lens = np.array([len(e) for e, _c in rows], np.int32)
+    P = int(lens.max())
+    excit = _pad([e for e, _c in rows], P).reshape(len(rows), P * 256)
+    parts = [excit, _pad([c for _e, c in rows], P),
+             np.reshape(hist0, (-1, 8)), np.asarray(r9_0), lens]
+    if torch.device(device).type == "cpu":
+        pcm, hist, r9 = audio_kernels.fastaudio_synth_host(*parts)
+    else:
+        pcm, hist, r9 = _download(*fastaudio_synth(*_upload(parts, device)))
+    return [pcm[b, :256 * k] for b, k in enumerate(lens)], hist, r9
+
+
+def _frame_pcm(audio: list[list | None], dec,
+               fastaudio: _FastAudio) -> list[np.ndarray | None]:
     """Each Moflex frame's PCM: its audio pieces in arrival order, joined
-    (None where it has none).  The IMA chunks among them are decoded
-    together, in one ``_decode_ima`` call on the video decoder's device."""
-    chunks = [p for a in audio if a for p in a if isinstance(p, _ImaChunk)]
-    if chunks:
+    (None where it has none, a dropped FastAudio chunk counting as none).
+    The IMA chunks among them are decoded together, in one ``_decode_ima``
+    call on the video decoder's device, and so are the FastAudio chunks,
+    in one ``_decode_fastaudio`` call."""
+    pieces = [p for a in audio if a for p in a]
+    ima = [p for p in pieces if isinstance(p, _ImaChunk)]
+    fas = [p for p in pieces if isinstance(p, _FastAudioChunk)]
+    if ima or fas:
         with span("mobiclip.audio"):
-            rows = [(c, i) for c in chunks if c.nibbles.shape[1]
+            done_fa = iter(fastaudio.decode(fas, dec) if fas else ())
+            rows = [(c, i) for c in ima if c.nibbles.shape[1]
                     for i in range(len(c.index0))]
             pcm = iter(_decode_ima([c.nibbles[i] for c, i in rows],
                                    [c.index0[i] for c, i in rows],
@@ -881,9 +1036,15 @@ def _frame_pcm(audio: list[list | None], dec) -> list[np.ndarray | None]:
                                    dec.device)[0])
             done = iter([rawio.interleave_channels(
                 [next(pcm) if c.nibbles.shape[1] else np.empty(0, np.int16)
-                 for _ in c.index0]) for c in chunks])
-    return [np.concatenate([next(done) if isinstance(p, _ImaChunk) else p
-                            for p in a]) if a else None for a in audio]
+                 for _ in c.index0]) for c in ima])
+    out = []
+    for a in audio:
+        parts = [next(done) if isinstance(p, _ImaChunk) else
+                 next(done_fa) if isinstance(p, _FastAudioChunk) else p
+                 for p in a or ()]
+        parts = [p for p in parts if p is not None]
+        out.append(np.concatenate(parts) if parts else None)
+    return out
 
 
 def _chunked_video_frames(dec, items, side=None) -> Iterator[DecodedFrame]:

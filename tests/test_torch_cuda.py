@@ -296,6 +296,58 @@ def test_cuda_transcoder_audio_goes_through_k9(cuda, container):
             np.testing.assert_array_equal(a.pcm, b.pcm, err_msg=f"frame {k}")
 
 
+@pytest.mark.cuda
+def test_cuda_fastaudio_per_packet_matches_plain(cuda):
+    """K8 with a coefficient set per packet and each row's packet count
+    (none, one, all, past the end): each row's samples of its packets and
+    its state after them == the plain version's, one launch."""
+    from mobiclipdecoder_tpu_torch.ops import audio_kernels
+    from mobiclipdecoder_tpu_torch.ops.audio_lpc import (
+        fastaudio_synth, fastaudio_synth_plain)
+    rng = np.random.default_rng(8)
+    B, P = 6, 5
+    args = [rng.integers(-2**20, 2**20, (B, P * 256)),
+            rng.integers(-32767, 32768, (B, P, 8)),
+            rng.integers(-2**24, 2**24, (B, 8)),
+            rng.integers(-2**24, 2**24, B), rng.integers(0, P + 1, B)]
+    args[4][:4] = [0, 1, P, P + 2]
+    args = [torch.from_numpy(a.astype(np.int32)) for a in args]
+    before = audio_kernels.fastaudio_launches
+    got = fastaudio_synth(*(a.to(cuda) for a in args))
+    want = fastaudio_synth_plain(*args)
+    for b, n in enumerate(args[4].clamp(0, P).tolist()):
+        np.testing.assert_array_equal(got[0][b, :256 * n].cpu().numpy(),
+                                      want[0][b, :256 * n].numpy())
+    for g, p in zip(got[1:], want[1:]):
+        np.testing.assert_array_equal(g.cpu().numpy(), p.numpy())
+    assert audio_kernels.fastaudio_launches == before + 1
+
+
+@pytest.mark.cuda
+def test_cuda_transcoder_fastaudio_goes_through_k8(cuda):
+    """decode_moflex with engine="cuda" on a 48-frame file with FastAudio
+    stereo (codec 0), each frame's chunk before its video, one with a
+    round that runs past its payload: PCM == the oracle engine's (the host
+    FastAudioDecoder), one K8 launch per launch (1, 3, 12, 16 and 16
+    frames), every one of which carries FastAudio."""
+    from mobiclipdecoder_tpu_torch.ops import audio_kernels
+    from mobiclipdecoder_tpu_torch.runtime import transcode
+    from torch_av import moflex_fastaudio
+    sizes = [[80 * (5 + f % 2) + 39 * (f == 20)] for f in range(48)]
+    blob = moflex_fastaudio(48, seed=23, sizes=sizes)
+    before = audio_kernels.fastaudio_launches
+    got = list(transcode.decode_moflex(blob, engine="cuda"))
+    assert audio_kernels.fastaudio_launches - before == len(
+        transcode.launch_lengths(48)) == 5
+    want = list(transcode.decode_moflex(blob, engine="oracle"))
+    assert len(got) == len(want) == 48
+    assert [f.index for f in got if f.pcm is None] == [20]
+    for k, (a, b) in enumerate(zip(got, want)):
+        assert (a.pcm is None) == (b.pcm is None), k
+        if a.pcm is not None:
+            np.testing.assert_array_equal(a.pcm, b.pcm, err_msg=f"frame {k}")
+
+
 def _wii_file(gop_frames, file=0):
     """(MOC5 bytes, GOPs) at 640x480 from the benchmark's frozen
     generator, GOPs of ``gop_frames`` frames each."""

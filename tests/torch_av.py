@@ -112,3 +112,37 @@ def moflex_ima(nframes: int, seed: int = 21, channels: int = 2,
             n = 2 * channels * int(rng.integers(1, 60)) + 1
             mux.add_frame(2, rng.integers(0, 256, n, np.uint8).tobytes())
     return mux.to_bytes()
+
+
+def moflex_fastaudio(nframes: int, seed: int = 31, streams=((1, 2),),
+                     sizes=None, before: bool = True,
+                     truncate_video_at=None) -> bytes:
+    """A Moflex file: video stream 0 and FastAudio streams (codec 0),
+    ``streams`` giving each one's (stream index, channels), each frame's
+    chunks muxed before its video (``before``) or after it.  ``sizes[f]``
+    gives frame f's chunk sizes in bytes, one per stream (default: two
+    rounds of 40-byte packets); the bytes are random, which any packet
+    decodes (the decoder's work does not depend on its bits).
+    ``truncate_video_at``: as in ``mods_ima``."""
+    rng = np.random.default_rng(seed)
+    synth = StreamSynthesizer(W, H, MobiclipVersion.MOFLEX_3DS, seed=seed)
+    mux = MoflexMuxer(
+        [VideoStream(stream_index=0, codec_id=0, fps_rate=24, fps_scale=1,
+                     width=W, height=H)]
+        + [AudioStream(stream_index=s, codec_id=0, frequency=32728,
+                       channels=ch) for s, ch in streams])
+    for f in range(nframes):
+        video = synth.iframe(0x12, pad=False) if f == 0 \
+            else synth.pframe(pad=False)
+        if f == truncate_video_at:
+            video = spoil(video)
+        chunks = [rng.integers(0, 256, 80 * ch if sizes is None
+                               else sizes[f][k], np.uint8).tobytes()
+                  for k, (_s, ch) in enumerate(streams)]
+        if not before:
+            mux.add_frame(0, video)
+        for (s, _ch), chunk in zip(streams, chunks):
+            mux.add_frame(s, chunk)
+        if before:
+            mux.add_frame(0, video)
+    return mux.to_bytes()
